@@ -7,31 +7,48 @@ Run from the repository root, with no arguments:
 Phases, each printing one line as it finishes:
 
   1. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
-  2. build the hand-written kernels from csrc/ with nvcc (build seconds,
-     ptxas register and spill report);
-  3. each kernel against its plain PyTorch version on the card, at the
+  2. build the hand-written kernels from csrc/ with nvcc, one nvcc process
+     per source, all started together (build seconds, ptxas register and
+     spill report);
+  3. cmatmul_f32 against its plain PyTorch version on the card, at the eig32
      main-path shape and at one large square shape, with CUDA-event timings
      of the kernel, the plain version and one PyTorch library call;
-  4. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
+  4. limb_matmul_canon against its plain version, bit for bit, at the four
+     shapes of the n13 extp apply and one large square shape, with timings
+     and the float64 matmul of the same shape as a yardstick;
+  5. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
      artifact contract, the physics invariants and a host longdouble oracle;
-  5. the same sweep with the "eig32" solver, which must launch the f32
-     kernel and stay within 2e-4 of phase 4's traces;
-  6. a JSON line with every kernel's launches and timings.
+  6. the same sweep with the "eig32" solver, which must launch the f32
+     kernel and stay within 2e-4 of phase 5's traces;
+  7. n_sea=13 (dim 16384) at the production output spacing dt = 30/19999 s,
+     N13_STEPS output steps, through ``simulate_rare`` ("auto" ->
+     "cheb_step", the "f64" tier on cuda), plus a timed run of the same
+     tier through ``chebyshev_step_traces`` for its time split;
+  8. the same model and times through ``chebyshev_step_traces`` with
+     ``arithmetic="extp"``, which must launch limb_matmul_canon six times
+     per apply and agree with phase 7 within 1e-11; both tiers are held
+     against a host oracle for the first interval (scipy expm_multiply,
+     computed in a child process while the card works);
+  9. a JSON line with every kernel's launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  A watchdog ends the run with exit code 1 after
 WATCHDOG_S seconds.  All sweep output goes to temporary directories outside
-the repository, which are removed at the end.
+the repository, which are removed at the end; the oracle's child process is
+joined, or killed with the run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import faulthandler
 import json
+import multiprocessing
 import os
+import signal
 import shutil
 import statistics
 import subprocess
@@ -50,12 +67,21 @@ EIG32_ATOL = 2e-4
 #: eig traces vs the host longdouble oracle (the reference's 30 s parity bar)
 ORACLE_ATOL = 1e-8
 
-#: (float32 FLOP/s without tensor cores, HBM bytes/s) from NVIDIA's data
-#: sheets, dense rates at the full power limit
+#: n13 extp vs f64 rows (the JAX package's bar, tests/test_limb_kernels.py:161)
+N13_TIER_ATOL = 1e-11
+#: both n13 tiers vs the host expm_multiply oracle at t = dt
+N13_ORACLE_ATOL = 1e-10
+#: n13 output steps per tier (each step is one restarted Chebyshev sweep of
+#: about 3,600 terms at the production dt)
+N13_STEPS = 3
+N13_DT = 30.0 / 19_999
+
+#: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
+#: bytes/s) from NVIDIA's data sheets, dense rates at the full power limit
 _PEAKS = {
-    "H100 SXM": (67e12, 3.35e12),
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
+    "H100 SXM": (67e12, 1979e12, 3.35e12),
+    "H100 PCIe": (51e12, 1513e12, 2.0e12),
+    "H100 NVL": (60e12, 1671e12, 3.9e12),
 }
 
 
@@ -63,7 +89,7 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_peaks(name: str) -> tuple[str, float, float]:
+def card_peaks(name: str) -> tuple[str, float, float, float]:
     if "PCIe" in name:
         key = "H100 PCIe"
     elif "NVL" in name:
@@ -116,7 +142,7 @@ def check_cmatmul(shape, peaks, seed: int) -> dict:
     plain_ms = cuda_ms(lambda: cmatmul_f32_plain(ar, ai, br, bi))
     library_ms = cuda_ms(lambda: torch.matmul(a_c, b_c))
 
-    _, flops_peak, bytes_peak = peaks
+    _, flops_peak, _, bytes_peak = peaks
     flops = 8.0 * B * M * K * N
     nbytes = 4.0 * (2 * B * M * K + 2 * B * K * N + 2 * B * M * N)
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
@@ -132,6 +158,190 @@ def check_cmatmul(shape, peaks, seed: int) -> dict:
         "gflop": flops / 1e9,
         "mbytes": nbytes / 1e6,
     }
+
+
+#: the n13 extp apply's four products (A, B shapes), and one large square
+LIMB_SHAPES = {
+    "HL": ((10, 256, 128), (10, 128, 256), {}),
+    "cross stage 1": ((10, 1792, 128), (10, 128, 128), {"tm": 128, "transpose_out": True}),
+    "cross stage 2": ((10, 128, 1792), (10, 1792, 128), {}),
+    "R": ((10, 256, 128), (10, 128, 256), {}),
+    "square 2048": ((10, 2048, 2048), (10, 2048, 2048), {}),
+}
+#: launches of each main-path shape in one extp apply
+LIMB_PER_APPLY = {"HL": 1, "cross stage 1": 2, "cross stage 2": 2, "R": 1}
+
+
+def random_limbs(shape, gen):
+    """Random canonical-range int8 limbs, negative values included: limb 0
+    in [-64, 64], the others in [-32, 32]."""
+    import torch
+
+    x = torch.randint(-32, 33, shape, generator=gen, device="cuda", dtype=torch.int32)
+    x[0] = torch.randint(-64, 65, shape[1:], generator=gen, device="cuda", dtype=torch.int32)
+    return x.to(torch.int8).contiguous()
+
+
+def check_limb(name, peaks, seed: int) -> dict:
+    """limb_matmul_canon vs its plain version at one shape, with timings."""
+    import torch
+
+    from quantumsimulations_tpu_torch.ops.limb_kernels import (
+        limb_matmul_canon,
+        limb_matmul_canon_plain,
+        live_pairs,
+    )
+
+    a_shape, b_shape, kw = LIMB_SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, b = random_limbs(a_shape, gen), random_limbs(b_shape, gen)
+    out = limb_matmul_canon(a, b, bits=6, **kw)
+    ref = limb_matmul_canon_plain(a, b, 6, **kw)
+    torch.cuda.synchronize()
+    n_diff = int((out != ref).sum())
+    if not torch.equal(out, ref):
+        raise AssertionError(f"limb_matmul_canon {name}: {n_diff} limbs differ from the plain version")
+    max_abs_err = float((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+
+    L, M, K = a_shape
+    N = b_shape[2]
+    af, bf = a[0].double(), b[0].double()
+    ms = cuda_ms(lambda: limb_matmul_canon(a, b, bits=6, **kw))
+    plain_ms = cuda_ms(lambda: limb_matmul_canon_plain(a, b, 6, **kw), reps=5)
+    library_ms = cuda_ms(lambda: torch.matmul(af, bf))
+
+    _, _, int8_peak, bytes_peak = peaks
+    ops = 2.0 * live_pairs(L) * M * N * K
+    nbytes = float(L * (M * K + K * N + M * N))
+    t_ops, t_bytes = ops / int8_peak * 1e3, nbytes / bytes_peak * 1e3
+    return {
+        "shape": [list(a_shape), list(b_shape)],
+        "transpose_out": bool(kw.get("transpose_out", False)),
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "gop": ops / 1e9,
+        "mbytes": nbytes / 1e6,
+    }
+
+
+def n13_params(T: int):
+    """bench._params_production(13, 0.0, True, True, dt*(T-1), T) of the JAX
+    package, built in the port: 13 sea spins + the rare spin at the center,
+    both driven, rare on Hartmann-Hahn, zero sea detuning."""
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.analysis.metrics import f1R_for_resonance
+    from quantumsimulations_tpu_torch.models.params import DipolarRareParams
+
+    gamma_sea, gamma_rare, B0, f1A = 8.1812e7, 6.976e7, 3.0, 50_000.0
+    f_Az = gamma_sea * B0 / (2 * np.pi)
+    f1R = f1R_for_resonance(f1A, f1A, 0.0)
+    return DipolarRareParams(
+        n_sea=13, gamma_sea=gamma_sea, gamma_rare=gamma_rare, B0_sea=B0, B0_rare=B0,
+        B1_sea=2 * np.pi * f1A / gamma_sea, B1_rare=2 * np.pi * f1R / gamma_rare,
+        omega_rf_sea=2 * np.pi * (f_Az - 0.0), omega_rf_rare=gamma_rare * B0,
+        phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+        shell_scale=0.282393e-9, t_final=N13_DT * (T - 1), steps=T, drive_sea=True,
+        drive_rare=True, is_spin_three_half=False, is_center_rare=True,
+    )
+
+
+def host_site_observables(psi, dims, n_sea_effective: int, idx_rare: int):
+    """The seven observable rows of one state, in numpy, from each site's
+    reduced density matrix (independent of the port's observables code)."""
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.ops.spin import spin_matrix
+
+    xyz = []
+    for j, d in enumerate(dims):
+        dl, dr = int(np.prod(dims[:j])), int(np.prod(dims[j + 1:]))
+        p = psi.reshape(dl, d, dr)
+        rho = np.einsum("adb,aeb->de", p, p.conj())
+        s = (d - 1) / 2.0
+        xyz.append([float(np.real(np.trace(rho @ spin_matrix(s, w)))) for w in "xyz"])
+    xyz = np.asarray(xyz)
+    sea = xyz[:n_sea_effective].sum(axis=0)
+    rare = xyz[idx_rare]
+    return np.array([sea[0], sea[1], sea[2], rare[2], rare[0], rare[1], np.linalg.norm(psi)])
+
+
+def _die_with_parent() -> None:
+    """Ask Linux to send this process SIGTERM when its parent ends, so the
+    oracle child cannot outlive a run cut by the watchdog."""
+    with contextlib.suppress(Exception):
+        ctypes.CDLL("libc.so.6").prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+
+
+def oracle_first_interval(conn) -> None:
+    """Child process: psi(dt) = expm_multiply(-i H dt, psi0) on the CSR of
+    to_coo, and its seven observable rows; sends (rows, seconds) or an error."""
+    _die_with_parent()
+    try:
+        sys.path.insert(0, REPO)
+        import numpy as np
+        import scipy.sparse as sparse
+        from scipy.sparse.linalg import expm_multiply
+
+        from quantumsimulations_tpu_torch.models.dipolar import build_model
+
+        t0 = time.perf_counter()
+        model = build_model(n13_params(N13_STEPS))
+        dim = int(np.prod(model.dims))
+        r, c, v = model.hamiltonian.to_coo()
+        Hs = sparse.csr_matrix((v, (r, c)), shape=(dim, dim))
+        psi = expm_multiply(-1j * N13_DT * Hs, model.psi0.astype(np.complex128))
+        rows = host_site_observables(psi, model.dims, model.n_sea_effective, model.idx_rare)
+        conn.send(("ok", rows, time.perf_counter() - t0, int(Hs.nnz)))
+    except Exception as exc:  # reported and raised by the parent
+        conn.send(("error", repr(exc), 0.0, 0))
+    finally:
+        conn.close()
+
+
+def n13_tier(model, arith: str, lam: float, T: int) -> dict:
+    """One timed run of chebyshev_step_traces at n13; returns rows, the
+    stage split and the launch counts of that run."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.cheb_step import chebyshev_step_traces
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer(device=torch.device("cuda"))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = chebyshev_step_traces(
+        model.hamiltonian, model.psi0, N13_DT * np.arange(T), model.dims,
+        model.n_sea_effective, model.idx_rare, norm_bound=lam, arithmetic=arith,
+        device="cuda", timer=timer,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    return {"rows": rows, "wall_s": wall, "launches": launches,
+            "stages_s": {k: v["seconds"] for k, v in timer.as_dict().items()}}
+
+
+def check_n13_rows(rows, T: int, name: str) -> float:
+    """Physics invariants of an n13 row block; returns max |norm - 1|."""
+    import numpy as np
+
+    if rows.shape != (8, T) or not np.isfinite(rows).all():
+        raise AssertionError(f"n13 {name}: rows not finite of shape (8, {T}): {rows.shape}")
+    norm_dev = float(np.abs(rows[6] - 1.0).max())
+    if not norm_dev < 1e-12:
+        raise AssertionError(f"n13 {name}: max |norm - 1| = {norm_dev:.3e}")
+    if abs(rows[2, 0] - (-6.5)) > 1e-12:
+        raise AssertionError(f"n13 {name}: Iz_sea[0] = {rows[2, 0]!r}, want -n_sea_effective/2 = -6.5")
+    if not np.all(rows[7] == rows[7, 0]):
+        raise AssertionError(f"n13 {name}: energy row not constant: {rows[7]}")
+    return norm_dev
 
 
 def production_sweep(solver: str, base_dir: str) -> dict:
@@ -251,8 +461,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
+    from quantumsimulations_tpu_torch.dynamics.cheb_step import _lambda_bound
+    from quantumsimulations_tpu_torch.dynamics.chebyshev import chebyshev_coefficients
+    from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
     from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from quantumsimulations_tpu_torch.kernels._build import build
+    from quantumsimulations_tpu_torch.kernels._build import build_all
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.ops.split_apply import split_operator
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -260,24 +476,47 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    say("[1/6] card (nvidia-smi name, power.limit):")
+    say("[1/9] card (nvidia-smi name, power.limit):")
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
-        f"{peaks[0]} data sheet: {peaks[1] / 1e12:g} TFLOP/s f32, {peaks[2] / 1e12:g} TB/s")
+        f"{peaks[0]} data sheet: {peaks[1] / 1e12:g} TFLOP/s f32, {peaks[2] / 1e12:g} TOP/s "
+        f"int8 (dense), {peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
-    ptxas = build("cmatmul_f32", extra_flags=("-Xptxas", "-v"))
-    report = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
-    say(f"[2/6] built cmatmul_f32 in {time.perf_counter() - t0:.2f} s; ptxas: {' | '.join(report)}")
+    built = build_all(("cmatmul_f32", "limb_matmul_canon"), extra_flags=("-Xptxas", "-v"))
+    for kname, (out, sec) in built.items():
+        report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+        say(f"[2/9] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
+    say(f"      both builds (in parallel): {time.perf_counter() - t0:.2f} s")
 
     main_shape = (39, 128, 128, 1680)
     at_main = check_cmatmul(main_shape, peaks, seed=1)
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
-        say(f"[3/6] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
+        say(f"[3/9] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
             f"(bound {KERNEL_REL_TOL:g}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    limb = {}
+    for i, lname in enumerate(LIMB_SHAPES):
+        r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
+        say(f"[4/9] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
+            f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, f64 matmul of the same "
+            f"shape {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    per_apply = {key: sum(n * limb[s][key] for s, n in LIMB_PER_APPLY.items())
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    say(f"      one extp apply (6 launches): kernel {per_apply['ms']:.4f} ms, plain "
+        f"{per_apply['plain_ms']:.4f} ms, f64 matmuls {per_apply['library_ms']:.4f} ms, bound "
+        f"{per_apply['bound_ms']:.5f} ms")
+
+    # the n13 oracle runs on the host in a child process while the card works
+    ctx = multiprocessing.get_context("spawn")
+    oracle_rx, oracle_tx = ctx.Pipe(duplex=False)
+    oracle = ctx.Process(target=oracle_first_interval, args=(oracle_tx,), daemon=True)
+    oracle.start()
+    oracle_tx.close()
 
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
@@ -296,7 +535,7 @@ def main() -> int:
         oracle_err = oracle_check(dir64, tr64)
         if not oracle_err <= ORACLE_ATOL:
             raise AssertionError(f"eig: Iz_sea vs host oracle {oracle_err:.3e} > {ORACLE_ATOL:g}")
-        say(f"[4/6] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
+        say(f"[5/9] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
@@ -314,31 +553,136 @@ def main() -> int:
         )
         if not diff <= EIG32_ATOL:
             raise AssertionError(f"eig32 vs eig: {diff:.3e} > {EIG32_ATOL:g}")
-        say(f"[5/6] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
+        say(f"[6/9] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
             f"max |eig32 - eig| {diff:.2e} "
             f"(bound {EIG32_ATOL:g}); launches {launches_eig32}")
+
+        # ---- n13, the default tier through the user entry point ----
+        T = N13_STEPS
+        params = n13_params(T)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        t_sim, named = simulate_rare(params, device="cuda")
+        torch.cuda.synchronize()
+        sim_wall = time.perf_counter() - t0
+        launches_sim = dict(launch_counts)
+        rows_sim = np.stack([named[k] for k in TRACE_ROWS[:7]])
+        if not np.allclose(np.diff(t_sim), N13_DT, rtol=1e-9, atol=0.0):
+            raise AssertionError("n13: simulate_rare ran another time grid")
+
+        setup = {}
+        t0 = time.perf_counter()
+        model = build_model(params)
+        setup["model_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        so = split_operator(model.hamiltonian)
+        setup["split_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lam = _lambda_bound(model.hamiltonian, 1 << 14)
+        setup["lambda_s"] = time.perf_counter() - t0
+        K = max(2, chebyshev_coefficients(lam, np.asarray([N13_DT])).shape[1])
+        applies = T * (K - 1) + 1  # K - 1 per step, plus the t=0 energy apply
+        shape = {"dims": list(model.dims), "DL": so.DL, "DR": so.DR,
+                 "A_re": int(so.cross_re_L.shape[0]), "A_im": int(so.cross_im_L.shape[0]),
+                 "lambda": lam, "K": K, "T": T, "applies": applies}
+
+        f64 = n13_tier(model, "f64", lam, T)
+        if f64["launches"]["limb_matmul_canon"] != 0:
+            raise AssertionError("n13 f64 tier launched the limb kernel")
+        norm_f64 = check_n13_rows(f64["rows"], T, "f64")
+        check_n13_rows(np.vstack([rows_sim, f64["rows"][7:]]), T, "simulate_rare")
+        sim_vs_f64 = float(np.abs(rows_sim - f64["rows"][:7]).max())
+        if not sim_vs_f64 <= 1e-12:
+            raise AssertionError(f"n13: simulate_rare vs chebyshev_step_traces f64 {sim_vs_f64:.3e}")
+        say(f"[7/9] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
+            f"{sim_wall:.2f} s wall, launches {launches_sim}; timed f64 run "
+            f"{f64['wall_s']:.2f} s {f64['stages_s']}, {T / f64['stages_s']['stepping']:.4f} steps/s, "
+            f"{T * (K - 1) / f64['stages_s']['stepping']:.1f} applies/s; host set-up {setup}; "
+            f"max|norm-1| {norm_f64:.2e}")
+
+        # ---- n13, extp: the limb kernel on the main path ----
+        extp = n13_tier(model, "extp", lam, T)
+        n_launch = extp["launches"]["limb_matmul_canon"]
+        if n_launch <= 0 or n_launch != 6 * applies:
+            raise AssertionError(f"n13 extp: {n_launch} limb_matmul_canon launches, "
+                                 f"want 6 x {applies} applies = {6 * applies}")
+        norm_extp = check_n13_rows(extp["rows"], T, "extp")
+        tier_diff = float(np.abs(extp["rows"][:7] - f64["rows"][:7]).max())
+        if not tier_diff <= N13_TIER_ATOL:
+            raise AssertionError(f"n13 extp vs f64: {tier_diff:.3e} > {N13_TIER_ATOL:g}")
+        e_diff = abs(extp["rows"][7, 0] - f64["rows"][7, 0])
+
+        if not oracle_rx.poll(WATCHDOG_S):
+            raise AssertionError("n13 oracle sent nothing")
+        status, o_rows, o_sec, nnz = oracle_rx.recv()
+        oracle.join(timeout=60)
+        if status != "ok":
+            raise AssertionError(f"n13 oracle failed: {o_rows}")
+        o_err = {tier: float(np.abs(r["rows"][:7, 1] - o_rows).max())
+                 for tier, r in (("f64", f64), ("extp", extp))}
+        if not max(o_err.values()) <= N13_ORACLE_ATOL:
+            raise AssertionError(f"n13 vs expm_multiply oracle at t=dt: {o_err} > {N13_ORACLE_ATOL:g}")
+        say(f"[8/9] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
+            f"{T / extp['stages_s']['stepping']:.4f} steps/s, "
+            f"{T * (K - 1) / extp['stages_s']['stepping']:.1f} applies/s, "
+            f"{n_launch} limb_matmul_canon launches ({6 * (K - 1)} per step); limb split of the "
+            f"operator planes + upload {extp['stages_s']['engine'] - setup['split_s']:.3f} s "
+            f"(engine - split); "
+            f"max|norm-1| {norm_extp:.2e}; |extp - f64| {tier_diff:.2e} (bound {N13_TIER_ATOL:g}), "
+            f"energy |extp - f64| {e_diff:.1e} rad/s; vs expm_multiply oracle at t=dt {o_err} "
+            f"(bound {N13_ORACLE_ATOL:g}; oracle {o_sec:.1f} s on the host, nnz {nnz})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if oracle.is_alive():
+            oracle.terminate()
+        oracle.join(timeout=30)
 
-    kernel = {
-        "name": "cmatmul_f32",
-        "route": "cuda",
-        "source": "quantumsimulations_tpu_torch/csrc/cmatmul_f32.cu",
-        "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:30",
-        "launches": launches_eig32["cmatmul_f32"],
-        "max_abs_err": at_main["max_abs_err"],
-        "ms": at_main["ms"],
-        "kernel_ms": at_main["ms"],
-        "plain_ms": at_main["plain_ms"],
-        "bound_ms": at_main["bound_ms"],
-        "bound_by": at_main["bound_by"],
-        "library_ms": at_main["library_ms"],
-        "library_call": "torch.matmul on complex64",
-        "shapes": [at_main, at_large],
-        "sweeps": {"eig": run64, "eig32": run32},
-    }
-    say(f"[6/6] total {time.perf_counter() - t_start:.1f} s; kernels:")
-    say(json.dumps({"kernels": [kernel]}))
+    n13 = {"shape": shape, "setup_s": setup, "simulate_rare_wall_s": sim_wall,
+           "f64": {k: v for k, v in f64.items() if k != "rows"},
+           "extp": {k: v for k, v in extp.items() if k != "rows"},
+           "extp_vs_f64": tier_diff, "vs_oracle": o_err, "oracle_s": o_sec}
+    kernels = [
+        {
+            "name": "cmatmul_f32",
+            "route": "cuda",
+            "source": "quantumsimulations_tpu_torch/csrc/cmatmul_f32.cu",
+            "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:30",
+            "launches": launches_eig32["cmatmul_f32"],
+            "max_abs_err": at_main["max_abs_err"],
+            "ms": at_main["ms"],
+            "kernel_ms": at_main["ms"],
+            "plain_ms": at_main["plain_ms"],
+            "bound_ms": at_main["bound_ms"],
+            "bound_by": at_main["bound_by"],
+            "library_ms": at_main["library_ms"],
+            "library_call": "torch.matmul on complex64",
+            "shapes": [at_main, at_large],
+            "sweeps": {"eig": run64, "eig32": run32},
+        },
+        {
+            "name": "limb_matmul_canon",
+            "route": "cuda",
+            "source": "quantumsimulations_tpu_torch/csrc/limb_matmul_canon.cu",
+            "replaces": "quantumsimulations_tpu/ops/limb_kernels.py:51",
+            "launches": n_launch,
+            "unit": "one n13 extp apply: its 6 launches (HL, 2 x cross stage 1, "
+                    "2 x cross stage 2, R) summed",
+            "max_abs_err": max(r["max_abs_err"] for r in limb.values()),
+            "ms": per_apply["ms"],
+            "kernel_ms": per_apply["ms"],
+            "plain_ms": per_apply["plain_ms"],
+            "bound_ms": per_apply["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": per_apply["library_ms"],
+            "library_call": "torch.matmul on float64 of the same (M, K, N) per launch: the f64 "
+                            "tier's product of the same shape, not the same function; no single "
+                            "PyTorch call computes limb products with the carry",
+            "shapes": limb,
+            "n13": n13,
+        },
+    ]
+    say(f"[9/9] total {time.perf_counter() - t_start:.1f} s; kernels:")
+    say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

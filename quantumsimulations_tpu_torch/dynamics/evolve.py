@@ -8,11 +8,14 @@ Solver dispatch (params.solver_method) in this port:
   * "eig"   — dense eigendecomposition propagator (exact), complex128.
   * "eig32" — the same with the product in the float32 fused complex-matmul
               kernel (~1e-5 accuracy).
-  * "auto"  — "eig" up to dim 2048, as in the JAX package.
+  * "cheb_step" — the split-matmul Chebyshev stepper (cheb_step.py), at its
+              default arithmetic tier ("f64" on cuda and cpu).
+  * "auto"  — as in the JAX package: "eig" up to dim 2048, "ext" up to dim
+              8192, "cheb_step" above.
 
 The JAX package's other solvers are not ported yet; asking for one (or for
-"auto" above dim 2048, where the JAX package picks "ext" or "cheb_step")
-raises NotImplementedError naming the ROADMAP.md item that will port it.
+"auto" between dim 2048 and 8192, where it picks "ext") raises
+NotImplementedError naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ _EXT_MAX_DIM = 8192  # the JAX package's dense ext limb chain reaches this far
 
 #: where each solver of the JAX package is scheduled to be ported
 _NOT_PORTED = {
-    "cheb_step": "ROADMAP.md queue 1 item 5 (beyond-dense stepping)",
     "ext": "ROADMAP.md queue 1 item 6 (dense exact-limb chain)",
     "expm": "ROADMAP.md queue 1 item 7 (other solvers)",
     "krylov": "ROADMAP.md queue 1 item 7 (other solvers)",
@@ -57,7 +59,7 @@ def check_method(method: str) -> None:
         raise NotImplementedError(
             f"solver_method {method!r} is not ported to PyTorch yet: {_NOT_PORTED[method]}"
         )
-    if method not in ("eig", "eig32"):
+    if method not in ("eig", "eig32", "cheb_step"):
         raise ValueError(f"unknown solver_method: {method!r}")
 
 
@@ -77,6 +79,17 @@ def simulate_rare(
     if method == "auto":
         method = _auto_method(dim)
     check_method(method)
+
+    if method == "cheb_step":
+        from .cheb_step import chebyshev_step_traces
+
+        rows = chebyshev_step_traces(
+            model.hamiltonian, model.psi0, t, dims,
+            model.n_sea_effective, model.idx_rare, device=device,
+        )
+        named = traces_dict(rows)
+        named.pop("energy", None)
+        return t, named
 
     w, V = eigh_host(model.hamiltonian.to_dense())
     fn = eig_traces_assembled_batched32 if method == "eig32" else eig_traces_assembled_batched

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -79,6 +81,22 @@ def build(name: str, extra_flags: tuple[str, ...] = (), timeout: float = 600.0) 
         if os.path.exists(tmp):
             os.remove(tmp)
     return proc.stdout + proc.stderr
+
+
+def build_all(
+    names: tuple[str, ...], extra_flags: tuple[str, ...] = (), timeout: float = 600.0
+) -> dict[str, tuple[str, float]]:
+    """Build several sources at once, one nvcc process each, all started
+    together.  Returns {name: (nvcc output, seconds)}; raises after every
+    build has ended if any failed."""
+    def one(name: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        out = build(name, extra_flags=extra_flags, timeout=timeout)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(one, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load_library(name: str) -> ctypes.CDLL:

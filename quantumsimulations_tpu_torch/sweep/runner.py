@@ -16,13 +16,12 @@ points whose metrics.json already exists.
 Differences from the JAX package's runner:
   * ``device=`` picks the torch device (default "cuda"; never a silent CPU
     fallback).
-  * Only the batched eigendecomposition solvers ("auto", "eig", "eig32") are
-    ported; the stepping solvers raise NotImplementedError before anything
-    is written, and ``mesh`` (the data-parallel sharded batch) raises too
-    (ROADMAP.md queue 1 item 9).
-  * Without ``base_dir``, each sweep gets a directory of its own: a sweep
-    that starts in the same second as another gets a ``_1``, ``_2``, ...
-    suffix instead of merging into the other's directory.
+  * Only the batched eigendecomposition route is ported.  As in the JAX
+    package, "cheb_step" (like "auto") is solved on it; the stepping
+    solvers the JAX runner solves one by one (expm, ext, krylov, chebyshev,
+    dopri) raise NotImplementedError before anything is written, and
+    ``mesh`` (the data-parallel sharded batch) raises too (ROADMAP.md
+    queue 1 item 9).
   * matplotlib is imported only when ``make_plots`` is on, so a sweep
     without plots runs where matplotlib is not installed.  (With plots off
     the reference opens an empty PdfPages, which writes no file, so the
@@ -123,21 +122,6 @@ def _solve_group(
     return outs
 
 
-def _fresh_sweep_dir(out_root: str) -> str:
-    """A new ``sea_detuning_sweep_<timestamp>[_<n>]`` directory under out_root."""
-    timestamp = _dt.datetime.now().strftime("%Y%m%d_%H%M%S")
-    stem = os.path.join(out_root, f"sea_detuning_sweep_{timestamp}")
-    os.makedirs(out_root, exist_ok=True)
-    path, n = stem, 0
-    while True:
-        try:
-            os.mkdir(path)
-            return path
-        except FileExistsError:
-            n += 1
-            path = f"{stem}_{n}"
-
-
 def run_sweep_sea_detuning(
     *,
     f_Az: float,
@@ -216,7 +200,10 @@ def run_sweep_sea_detuning(
 
     # -------- output directory --------
     if base_dir is None:
-        base_dir = _fresh_sweep_dir(out_root)
+        # named to the second, as the JAX package names it: two sweeps
+        # started in the same second share the directory there too
+        timestamp = _dt.datetime.now().strftime("%Y%m%d_%H%M%S")
+        base_dir = os.path.join(out_root, f"sea_detuning_sweep_{timestamp}")
     os.makedirs(base_dir, exist_ok=True)
     pdf_path = os.path.join(base_dir, "sea_detuning_report.pdf")
 

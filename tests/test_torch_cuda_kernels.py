@@ -6,20 +6,25 @@ JAX, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Bounds: the kernel against its plain PyTorch version, 1e-5 of the output's
+Bounds: cmatmul_f32 against its plain PyTorch version, 1e-5 of the output's
 largest magnitude (both IEEE float32, summed in another order); the eig32
-propagator against the float64 one, 2e-4 (the JAX package's bar).
+propagator against the float64 one, 2e-4 (the JAX package's bar);
+limb_matmul_canon against its plain version, equal bit for bit (int32 sums
+are exact in any order); the extp Chebyshev stepper against the f64 one,
+1e-11 (the JAX package's bar, tests/test_limb_kernels.py:161).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from quantumsimulations_tpu_torch.dynamics import cheb_step as tcs
 from quantumsimulations_tpu_torch.dynamics import eig_propagator as teig
 from quantumsimulations_tpu_torch.kernels import launch_counts
 from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.ops import cmatmul as cm
+from quantumsimulations_tpu_torch.ops import limb_kernels as lk
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -96,3 +101,91 @@ def test_eig32_on_card_within_bound_of_f64(cuda_device):
     assert np.abs(rows64[:, :7] - cpu64[:, :7]).max() <= 1e-10
     assert np.abs(rows32[:, :7] - rows64[:, :7]).max() <= 2e-4
     assert np.abs(rows64[:, 6] - 1.0).max() < 1e-12
+
+
+def _limbs(shape, gen, device):
+    x = torch.randint(-32, 33, shape, generator=gen, device=device, dtype=torch.int32)
+    x[0] = torch.randint(-64, 65, shape[1:], generator=gen, device=device, dtype=torch.int32)
+    return x.to(torch.int8).contiguous()
+
+
+@pytest.mark.parametrize(
+    "M,K,N,tm",
+    [
+        (256, 128, 256, None),  # H_L of the n13 extp apply
+        (1792, 128, 128, 128),  # cross stage 1, transpose_out
+        (128, 1792, 128, None),  # cross stage 2
+        (256, 128, 256, None),  # H_R
+        (33, 50, 70, None),  # ragged M, N, K
+        (96, 37, 24, 32),  # ragged K, transpose_out
+        (640, 301, 700, None),  # the 32x32-tile launch, ragged
+    ],
+)
+def test_limb_kernel_matches_plain(cuda_device, M, K, N, tm):
+    gen = torch.Generator(device=cuda_device).manual_seed(M + 7 * K + 13 * N)
+    a, b = _limbs((10, M, K), gen, cuda_device), _limbs((10, K, N), gen, cuda_device)
+    kw = dict(tm=tm, transpose_out=True) if tm else {}
+    before = launch_counts["limb_matmul_canon"]
+    out = lk.limb_matmul_canon(a, b, bits=6, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["limb_matmul_canon"] == before + 1
+    assert torch.equal(out, lk.limb_matmul_canon_plain(a, b, 6, **kw))
+
+
+def test_limb_kernel_extreme_limbs(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randint(-128, 128, (10, 40, 24), generator=gen, device=cuda_device).to(torch.int8)
+    b = torch.randint(-128, 128, (10, 24, 50), generator=gen, device=cuda_device).to(torch.int8)
+    a[:, 0, :] = -128
+    assert torch.equal(lk.limb_matmul_canon(a, b, bits=6), lk.limb_matmul_canon_plain(a, b, 6))
+
+
+@pytest.mark.parametrize("bad", ["cpu_operand", "dtype", "noncontiguous", "overflow_k", "limbs"])
+def test_limb_kernel_wrapper_raises(cuda_device, bad):
+    a = torch.zeros((10, 32, 16), dtype=torch.int8, device=cuda_device)
+    b = torch.zeros((10, 16, 8), dtype=torch.int8, device=cuda_device)
+    err = ValueError
+    if bad == "cpu_operand":
+        b = b.cpu()
+    elif bad == "dtype":
+        a, err = a.to(torch.int32), TypeError
+    elif bad == "noncontiguous":
+        b = torch.zeros((10, 8, 16), dtype=torch.int8, device=cuda_device).transpose(1, 2)
+    elif bad == "overflow_k":
+        K = 2**31 // (2**12 * 10) + 1
+        a = torch.zeros((10, 1, K), dtype=torch.int8, device=cuda_device)
+        b = torch.zeros((10, K, 1), dtype=torch.int8, device=cuda_device)
+        err = AssertionError
+    else:
+        a, b = a[:8].contiguous(), b[:8].contiguous()
+    with pytest.raises(err):
+        lk.limb_matmul_canon(a, b, bits=6)
+
+
+def test_limb_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(lk, "limb_matmul_canon_plain", refuse)
+    monkeypatch.setattr(lk, "product_digits", refuse)
+    x = torch.zeros((10, 16, 16), dtype=torch.int8, device=cuda_device)
+    assert lk.limb_matmul_canon(x, x, bits=6).is_cuda
+
+
+def test_extp_steps_on_card_within_bound_of_f64(cuda_device):
+    kw = dict(
+        n_sea=9, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
+        B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
+        omega_rf_sea=8.1812e7 * 3.0, omega_rf_rare=6.976e7 * 3.0,
+        phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+        shell_scale=0.282393e-9, drive_sea=True, drive_rare=True, is_spin_three_half=False,
+    )
+    m = build_model(DipolarRareParams(**kw))
+    times = np.arange(2) * (30.0 / 19_999)
+    args = (m.hamiltonian, m.psi0, times, m.dims, m.n_sea_effective, m.idx_rare)
+    f64 = tcs.chebyshev_step_traces(*args, arithmetic="f64", device=cuda_device)
+    before = launch_counts["limb_matmul_canon"]
+    extp = tcs.chebyshev_step_traces(*args, arithmetic="extp", device=cuda_device)
+    assert launch_counts["limb_matmul_canon"] > before
+    assert np.abs(extp[:7] - f64[:7]).max() <= 1e-11
+    assert np.abs(extp[6] - 1.0).max() < 1e-12

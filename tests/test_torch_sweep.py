@@ -149,13 +149,31 @@ def test_resume_skips_finished_points(sweep_pair, tmp_path, capsys):
     _assert_values_close(got, summary["sweep_results"], "resumed")
 
 
-def test_each_sweep_gets_its_own_directory(tmp_path):
+def test_each_sweep_gets_its_own_directory(tmp_path, monkeypatch):
+    """Without base_dir both packages name the sweep directory to the second
+    from the same clock reading (frozen here), so they pick the same name."""
+    import datetime as real_dt
+    import types
+
+    import quantumsimulations_tpu.sweep.runner as jrunner
+    import quantumsimulations_tpu_torch.sweep.runner as trunner
+
+    frozen = real_dt.datetime(2026, 3, 4, 5, 6, 7)
+
+    class _Clock(real_dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return frozen
+
+    clock = types.SimpleNamespace(datetime=_Clock)
+    monkeypatch.setattr(jrunner, "_dt", clock)
+    monkeypatch.setattr(trunner, "_dt", clock)
     cfg = dict(SWEEP, sea_detunings_Hz=[10_000.0], steps=40)
-    a = tsweep(**cfg, out_root=str(tmp_path), device="cpu")
-    b = tsweep(**cfg, out_root=str(tmp_path), device="cpu")
-    assert a != b
+    a = tsweep(**cfg, out_root=str(tmp_path / "port"), device="cpu")
+    b = jsweep(**cfg, out_root=str(tmp_path / "ref"))
+    assert os.path.basename(a) == os.path.basename(b) == "sea_detuning_sweep_20260304_050607"
+    assert os.path.dirname(a) == str(tmp_path / "port")
     for d in (a, b):
-        assert os.path.basename(d).startswith("sea_detuning_sweep_")
         assert os.path.isfile(os.path.join(d, "summary.json"))
 
 
