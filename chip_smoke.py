@@ -16,22 +16,32 @@ Phases, each printing one line as it finishes:
   4. limb_matmul_canon against its plain version, bit for bit, at the four
      shapes of the n13 extp apply and one large square shape, with timings
      and the float64 matmul of the same shape as a yardstick;
-  5. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
+  5. ext_obs_diagonals_int8 against its plain version, bit for bit, at a
+     ragged small shape, at (15, 8192, 1024) and at the n12 advance's shape
+     (15, 8192, 20480), on random canonical limbs with limb 0 at its full
+     range, with CUDA-event timings of the kernel and the plain version;
+  6. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
      artifact contract, the physics invariants and a host longdouble oracle;
-  6. the same sweep with the "eig32" solver, which must launch the f32
-     kernel and stay within 2e-4 of phase 5's traces;
-  7. n_sea=13 (dim 16384) at the production output spacing dt = 30/19999 s,
+  7. the same sweep with the "eig32" solver, which must launch the f32
+     kernel and stay within 2e-4 of phase 6's traces;
+  8. n_sea=13 (dim 16384) at the production output spacing dt = 30/19999 s,
      N13_STEPS output steps, through ``simulate_rare`` ("auto" ->
      "cheb_step", the "f64" tier on cuda), plus a timed run of the same
      tier through ``chebyshev_step_traces`` for its time split;
-  8. the same model and times through ``chebyshev_step_traces`` with
+  9. the same model and times through ``chebyshev_step_traces`` with
      ``arithmetic="extp"``, which must launch limb_matmul_canon six times
-     per apply and agree with phase 7 within 1e-11; both tiers are held
+     per apply and agree with phase 8 within 1e-11; both tiers are held
      against a host oracle for the first interval (scipy expm_multiply,
      computed in a child process while the card works);
-  9. a JSON line with every kernel's launches and timings.
+ 10. n_sea=12 (dim 8192), the JAX package's n12 workload (bench.py:258):
+     N12_STEPS output steps at the production spacing through
+     ``simulate_rare`` ("auto" -> "ext"), which must launch
+     ext_obs_diagonals_int8, keep the norm within N12_NORM_ATOL and agree within
+     1e-10 with ``chebyshev_step_traces`` (f64) over the first 3 output
+     steps and with a host expm_multiply oracle at t = dt (child process);
+ 11. a JSON line with every kernel's launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  A watchdog ends the run with exit code 1 after
@@ -71,10 +81,24 @@ ORACLE_ATOL = 1e-8
 N13_TIER_ATOL = 1e-11
 #: both n13 tiers vs the host expm_multiply oracle at t = dt
 N13_ORACLE_ATOL = 1e-10
+#: n12 ext vs the f64 stepper over the first N12_CHECK_STEPS output steps,
+#: and vs the host expm_multiply oracle at t = dt
+N12_ATOL = 1e-10
+N12_CHECK_STEPS = 3
+#: n12 ext max |state_norm - 1| over the 30 s horizon.  The limb chain's
+#: truncation, amplified by 2^(n_sq + log2 block) = 2^25, shows as a norm
+#: drift of 1.0373879533176478e-10 in the JAX package's own run of this
+#: workload (BENCH_r04.json, bench.py:258); the port's limbs are the same bit
+#: for bit, so its drift is held to that record with a factor 2 of room
+N12_NORM_ATOL = 2e-10
 #: n13 output steps per tier (each step is one restarted Chebyshev sweep of
 #: about 3,600 terms at the production dt)
 N13_STEPS = 3
 N13_DT = 30.0 / 19_999
+#: the n12 ext evolution (bench.py:258): production spacing and horizon
+N12_DT = 30.0 / 19_999
+N12_STEPS = 20_000
+N12_DETUNING_HZ = 1000.0
 
 #: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
 #: bytes/s) from NVIDIA's data sheets, dense rates at the full power limit
@@ -83,6 +107,10 @@ _PEAKS = {
     "H100 PCIe": (51e12, 1513e12, 2.0e12),
     "H100 NVL": (60e12, 1671e12, 3.9e12),
 }
+#: int32 operations/s on the CUDA cores (64 INT32 lanes per SM, half the
+#: FP32 lanes, a multiply-add counted as two operations as the float32 rate
+#: counts an FMA): half the float32 rate above
+_INT32_SHARE_OF_F32 = 0.5
 
 
 def say(msg: str) -> None:
@@ -171,6 +199,11 @@ LIMB_SHAPES = {
 #: launches of each main-path shape in one extp apply
 LIMB_PER_APPLY = {"HL": 1, "cross stage 1": 2, "cross stage 2": 2, "R": 1}
 
+#: ext_obs_diagonals_int8 shapes (L, dim, T): a ragged small one, a (dim
+#: 8192) check, and the n12 advance's one launch (40 blocks of 512 columns);
+#: the last one is the main path's, reported in the kernels line
+EXT_OBS_SHAPES = ((15, 64, 200), (15, 8192, 1024), (15, 8192, 40 * 512))
+
 
 def random_limbs(shape, gen):
     """Random canonical-range int8 limbs, negative values included: limb 0
@@ -228,10 +261,10 @@ def check_limb(name, peaks, seed: int) -> dict:
     }
 
 
-def n13_params(T: int):
-    """bench._params_production(13, 0.0, True, True, dt*(T-1), T) of the JAX
-    package, built in the port: 13 sea spins + the rare spin at the center,
-    both driven, rare on Hartmann-Hahn, zero sea detuning."""
+def production_params(n_sea: int, delta_Hz: float, dt: float, T: int):
+    """bench._params_production(n_sea, delta_Hz, True, True, dt*(T-1), T) of
+    the JAX package, built in the port: n_sea sea spins + the rare spin at
+    the center, both driven, rare on Hartmann-Hahn."""
     import numpy as np
 
     from quantumsimulations_tpu_torch.analysis.metrics import f1R_for_resonance
@@ -241,13 +274,24 @@ def n13_params(T: int):
     f_Az = gamma_sea * B0 / (2 * np.pi)
     f1R = f1R_for_resonance(f1A, f1A, 0.0)
     return DipolarRareParams(
-        n_sea=13, gamma_sea=gamma_sea, gamma_rare=gamma_rare, B0_sea=B0, B0_rare=B0,
+        n_sea=n_sea, gamma_sea=gamma_sea, gamma_rare=gamma_rare, B0_sea=B0, B0_rare=B0,
         B1_sea=2 * np.pi * f1A / gamma_sea, B1_rare=2 * np.pi * f1R / gamma_rare,
-        omega_rf_sea=2 * np.pi * (f_Az - 0.0), omega_rf_rare=gamma_rare * B0,
+        omega_rf_sea=2 * np.pi * (f_Az - delta_Hz), omega_rf_rare=gamma_rare * B0,
         phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
-        shell_scale=0.282393e-9, t_final=N13_DT * (T - 1), steps=T, drive_sea=True,
+        shell_scale=0.282393e-9, t_final=dt * (T - 1), steps=T, drive_sea=True,
         drive_rare=True, is_spin_three_half=False, is_center_rare=True,
     )
+
+
+def n13_params(T: int):
+    """The n13 workload (bench.py:316-376) at zero sea detuning."""
+    return production_params(13, 0.0, N13_DT, T)
+
+
+def n12_params(T: int):
+    """The n12 workload (bench.py:258, its measured evolution at 1 kHz sea
+    detuning) over T output steps of the production spacing."""
+    return production_params(12, N12_DETUNING_HZ, N12_DT, T)
 
 
 def host_site_observables(psi, dims, n_sea_effective: int, idx_rare: int):
@@ -277,9 +321,10 @@ def _die_with_parent() -> None:
         ctypes.CDLL("libc.so.6").prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
 
 
-def oracle_first_interval(conn) -> None:
+def oracle_first_interval(conn, n_sea: int) -> None:
     """Child process: psi(dt) = expm_multiply(-i H dt, psi0) on the CSR of
-    to_coo, and its seven observable rows; sends (rows, seconds) or an error."""
+    to_coo for the n13 or n12 workload, and its seven observable rows;
+    sends (rows, seconds) or an error."""
     _die_with_parent()
     try:
         sys.path.insert(0, REPO)
@@ -290,17 +335,96 @@ def oracle_first_interval(conn) -> None:
         from quantumsimulations_tpu_torch.models.dipolar import build_model
 
         t0 = time.perf_counter()
-        model = build_model(n13_params(N13_STEPS))
+        params, dt = (n13_params(N13_STEPS), N13_DT) if n_sea == 13 else (n12_params(3), N12_DT)
+        model = build_model(params)
         dim = int(np.prod(model.dims))
         r, c, v = model.hamiltonian.to_coo()
         Hs = sparse.csr_matrix((v, (r, c)), shape=(dim, dim))
-        psi = expm_multiply(-1j * N13_DT * Hs, model.psi0.astype(np.complex128))
+        psi = expm_multiply(-1j * dt * Hs, model.psi0.astype(np.complex128))
         rows = host_site_observables(psi, model.dims, model.n_sea_effective, model.idx_rare)
         conn.send(("ok", rows, time.perf_counter() - t0, int(Hs.nnz)))
     except Exception as exc:  # reported and raised by the parent
         conn.send(("error", repr(exc), 0.0, 0))
     finally:
         conn.close()
+
+
+def start_oracle(ctx, n_sea: int):
+    """Start :func:`oracle_first_interval` in a child; returns (process, pipe end)."""
+    rx, tx = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=oracle_first_interval, args=(tx, n_sea), daemon=True)
+    proc.start()
+    tx.close()
+    return proc, rx
+
+
+def oracle_result(proc, rx, name: str):
+    """(rows, seconds, nnz) from an oracle child, or raise."""
+    if not rx.poll(WATCHDOG_S):
+        raise AssertionError(f"{name} oracle sent nothing")
+    status, rows, sec, nnz = rx.recv()
+    proc.join(timeout=60)
+    if status != "ok":
+        raise AssertionError(f"{name} oracle failed: {rows}")
+    return rows, sec, nnz
+
+
+def check_ext_obs(shape, peaks, seed: int, reps: int = 10, plain_reps: int = 3) -> dict:
+    """ext_obs_diagonals_int8 vs its plain version at one (L, dim, T) shape,
+    bit for bit, with timings and the bound."""
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.expm_propagator import _EXT_OBS_Q, _EXT_PAIRS
+    from quantumsimulations_tpu_torch.ops.ext_obs import (
+        ext_obs_diagonals_int8,
+        ext_obs_diagonals_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def limbs():
+        """Random canonical limbs, negative values included: limb 0 over its
+        full range [-33, 33], the others in [-16, 16]."""
+        x = torch.randint(-16, 17, shape, generator=gen, device="cuda", dtype=torch.int32)
+        x[0] = torch.randint(-33, 34, shape[1:], generator=gen, device="cuda", dtype=torch.int32)
+        x[0, 0, 0], x[0, -1, -1] = 33, -33
+        return x.to(torch.int8).contiguous()
+
+    jj, ii, _ = _EXT_PAIRS
+    S_re, S_im = limbs(), limbs()
+    out = ext_obs_diagonals_int8(S_re, S_im, jj, ii, _EXT_OBS_Q)
+    ref = ext_obs_diagonals_plain(S_re, S_im, jj, ii, _EXT_OBS_Q)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"ext_obs_diagonals_int8 {shape}: {int((out != ref).sum())} sums "
+                             "differ from the plain version")
+    max_abs_err = float((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    ms = cuda_ms(lambda: ext_obs_diagonals_int8(S_re, S_im, jj, ii, _EXT_OBS_Q), reps=reps)
+    plain_ms = cuda_ms(lambda: ext_obs_diagonals_plain(S_re, S_im, jj, ii, _EXT_OBS_Q),
+                       reps=plain_reps, warmup=1)
+
+    L, dim, T = shape
+    n = dim.bit_length() - 1
+    P, R = len(jj), out.shape[1]
+    # operations the function needs per pair and column: prod = Rj*Ri + Ij*Ii
+    # on every row (2 multiply-adds), its norm and per-site z sums (1 + n
+    # adds per row), x and y over the dim/2 level pairs of each site (4
+    # multiply-adds per level pair); a multiply-add is two operations
+    ops = float(P) * T * dim * (4 + 1 + n + 4 * n)
+    nbytes = 2.0 * _EXT_OBS_Q * dim * T + 4.0 * _EXT_OBS_Q * R * T
+    int32_peak = peaks[1] * _INT32_SHARE_OF_F32
+    t_ops, t_bytes = ops / int32_peak * 1e3, nbytes / peaks[3] * 1e3
+    return {
+        "shape": list(shape),
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "gop": ops / 1e9,
+        "cost_estimate_gop": float(P) * dim * T * (6 + 10 * n) / 1e9,
+        "mbytes": nbytes / 1e6,
+    }
 
 
 def n13_tier(model, arith: str, lam: float, T: int) -> dict:
@@ -342,6 +466,77 @@ def check_n13_rows(rows, T: int, name: str) -> float:
     if not np.all(rows[7] == rows[7, 0]):
         raise AssertionError(f"n13 {name}: energy row not constant: {rows[7]}")
     return norm_dev
+
+
+def n12_ext(oracle) -> dict:
+    """The n12 workload through ``simulate_rare`` ("auto" -> "ext") with its
+    launches and stage split, held against the f64 Chebyshev stepper over
+    the first N12_CHECK_STEPS output steps and against the host oracle at
+    t = dt."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.cheb_step import chebyshev_step_traces
+    from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
+    from quantumsimulations_tpu_torch.dynamics.evolve import _auto_method, simulate_rare
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.ops.extprec import EXT_GUARD, EXT_LIMBS, _ext_pairs
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer
+
+    params = n12_params(N12_STEPS)
+    model = build_model(params)
+    dim = int(np.prod(model.dims))
+    if _auto_method(dim) != "ext":
+        raise AssertionError(f"n12: auto picks {_auto_method(dim)!r} at dim {dim}, not 'ext'")
+    timer = StageTimer(device=torch.device("cuda"))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t, named = simulate_rare(params, device="cuda", timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    if launches["ext_obs_diagonals_int8"] <= 0:
+        raise AssertionError(f"n12: ext_obs_diagonals_int8 was not launched: {launches}")
+    if "squarings" not in timer.stages:
+        raise AssertionError(f"n12: simulate_rare did not take the ext route: {timer.stages}")
+    rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
+    if rows.shape != (7, N12_STEPS) or not np.isfinite(rows).all():
+        raise AssertionError(f"n12: rows not finite of shape (7, {N12_STEPS}): {rows.shape}")
+    if not np.allclose(np.diff(t), N12_DT, rtol=1e-9, atol=0.0):
+        raise AssertionError("n12: simulate_rare ran another time grid")
+    norm_dev = float(np.abs(rows[6] - 1.0).max())
+    if not norm_dev < N12_NORM_ATOL:
+        raise AssertionError(f"n12: max |norm - 1| = {norm_dev:.3e} >= {N12_NORM_ATOL:g}")
+    if abs(rows[2, 0] - (-6.0)) > 1e-12:
+        raise AssertionError(f"n12: Iz_sea[0] = {rows[2, 0]!r}, want -n_sea/2 = -6")
+    ref = chebyshev_step_traces(
+        model.hamiltonian, model.psi0, t[:N12_CHECK_STEPS], model.dims, model.n_sea_effective,
+        model.idx_rare, arithmetic="f64", device="cuda")
+    vs_cheb = float(np.abs(rows[:, :N12_CHECK_STEPS] - ref[:7]).max())
+    if not vs_cheb <= N12_ATOL:
+        raise AssertionError(f"n12 ext vs cheb_step f64: {vs_cheb:.3e} > {N12_ATOL:g}")
+    o_rows, o_sec, _ = oracle_result(*oracle, "n12")
+    vs_oracle = float(np.abs(rows[:, 1] - o_rows).max())
+    if not vs_oracle <= N12_ATOL:
+        raise AssertionError(f"n12 ext vs expm_multiply oracle at t=dt: {vs_oracle:.3e} > {N12_ATOL:g}")
+    stages = timer.as_dict()
+    n_sq = stages["squarings"]["calls"]
+    # int8 GEMM operations of one (dim)^3 ext product: 3 Karatsuba GEMMs per
+    # limb pair, over the int8 tensor-core rate
+    pairs = len(_ext_pairs(EXT_LIMBS)[0])
+    product_ops = 3 * 2.0 * pairs * float(dim) ** 3
+    return {
+        "wall_s": wall, "stages_s": {k: v["seconds"] for k, v in stages.items()},
+        "stage_calls": {k: v["calls"] for k, v in stages.items()},
+        "launches": launches, "n_sq": n_sq,
+        "products": stages["horner"]["calls"] + n_sq + stages["doubling"]["calls"],
+        "s_per_product": stages["squarings"]["seconds"] / max(n_sq, 1),
+        "product_bound_s": product_ops / card_peaks(torch.cuda.get_device_name(0))[2],
+        "limb_pairs": pairs, "guard": EXT_GUARD,
+        "norm_dev": norm_dev, "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb,
+        "vs_oracle": vs_oracle, "oracle_s": o_sec,
+    }
 
 
 def production_sweep(solver: str, base_dir: str) -> dict:
@@ -476,7 +671,7 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    say("[1/9] card (nvidia-smi name, power.limit):")
+    say("[1/11] card (nvidia-smi name, power.limit):")
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
@@ -484,24 +679,24 @@ def main() -> int:
         f"int8 (dense), {peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
-    built = build_all(("cmatmul_f32", "limb_matmul_canon"), extra_flags=("-Xptxas", "-v"))
+    built = build_all(extra_flags=("-Xptxas", "-v"))
     for kname, (out, sec) in built.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        say(f"[2/9] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
-    say(f"      both builds (in parallel): {time.perf_counter() - t0:.2f} s")
+        say(f"[2/11] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
+    say(f"      all {len(built)} builds (in parallel): {time.perf_counter() - t0:.2f} s")
 
     main_shape = (39, 128, 128, 1680)
     at_main = check_cmatmul(main_shape, peaks, seed=1)
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
-        say(f"[3/9] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
+        say(f"[3/11] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
             f"(bound {KERNEL_REL_TOL:g}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     limb = {}
     for i, lname in enumerate(LIMB_SHAPES):
         r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
-        say(f"[4/9] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
+        say(f"[4/11] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
             f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, f64 matmul of the same "
             f"shape {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -511,12 +706,21 @@ def main() -> int:
         f"{per_apply['plain_ms']:.4f} ms, f64 matmuls {per_apply['library_ms']:.4f} ms, bound "
         f"{per_apply['bound_ms']:.5f} ms")
 
-    # the n13 oracle runs on the host in a child process while the card works
+    # the n13 and n12 oracles run on the host in child processes while the
+    # card works
     ctx = multiprocessing.get_context("spawn")
-    oracle_rx, oracle_tx = ctx.Pipe(duplex=False)
-    oracle = ctx.Process(target=oracle_first_interval, args=(oracle_tx,), daemon=True)
-    oracle.start()
-    oracle_tx.close()
+    oracles = {n: start_oracle(ctx, n) for n in (13, 12)}
+
+    obs = {}
+    for i, shape in enumerate(EXT_OBS_SHAPES):
+        big = shape[2] > 4096
+        r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, reps=3 if big else 10,
+                                       plain_reps=1 if big else 3)
+        say(f"[5/11] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['gop']:.1f} G int32 operations, the JAX cost estimate "
+            f"counts {r['cost_estimate_gop']:.1f} G)")
+    at_path = obs[EXT_OBS_SHAPES[-1]]
 
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
@@ -535,7 +739,7 @@ def main() -> int:
         oracle_err = oracle_check(dir64, tr64)
         if not oracle_err <= ORACLE_ATOL:
             raise AssertionError(f"eig: Iz_sea vs host oracle {oracle_err:.3e} > {ORACLE_ATOL:g}")
-        say(f"[5/9] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
+        say(f"[6/11] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
@@ -553,7 +757,7 @@ def main() -> int:
         )
         if not diff <= EIG32_ATOL:
             raise AssertionError(f"eig32 vs eig: {diff:.3e} > {EIG32_ATOL:g}")
-        say(f"[6/9] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
+        say(f"[7/11] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
             f"max |eig32 - eig| {diff:.2e} "
             f"(bound {EIG32_ATOL:g}); launches {launches_eig32}")
 
@@ -594,7 +798,7 @@ def main() -> int:
         sim_vs_f64 = float(np.abs(rows_sim - f64["rows"][:7]).max())
         if not sim_vs_f64 <= 1e-12:
             raise AssertionError(f"n13: simulate_rare vs chebyshev_step_traces f64 {sim_vs_f64:.3e}")
-        say(f"[7/9] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
+        say(f"[8/11] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
             f"{sim_wall:.2f} s wall, launches {launches_sim}; timed f64 run "
             f"{f64['wall_s']:.2f} s {f64['stages_s']}, {T / f64['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / f64['stages_s']['stepping']:.1f} applies/s; host set-up {setup}; "
@@ -612,17 +816,12 @@ def main() -> int:
             raise AssertionError(f"n13 extp vs f64: {tier_diff:.3e} > {N13_TIER_ATOL:g}")
         e_diff = abs(extp["rows"][7, 0] - f64["rows"][7, 0])
 
-        if not oracle_rx.poll(WATCHDOG_S):
-            raise AssertionError("n13 oracle sent nothing")
-        status, o_rows, o_sec, nnz = oracle_rx.recv()
-        oracle.join(timeout=60)
-        if status != "ok":
-            raise AssertionError(f"n13 oracle failed: {o_rows}")
+        o_rows, o_sec, nnz = oracle_result(*oracles[13], "n13")
         o_err = {tier: float(np.abs(r["rows"][:7, 1] - o_rows).max())
                  for tier, r in (("f64", f64), ("extp", extp))}
         if not max(o_err.values()) <= N13_ORACLE_ATOL:
             raise AssertionError(f"n13 vs expm_multiply oracle at t=dt: {o_err} > {N13_ORACLE_ATOL:g}")
-        say(f"[8/9] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
+        say(f"[9/11] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
             f"{T / extp['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / extp['stages_s']['stepping']:.1f} applies/s, "
             f"{n_launch} limb_matmul_canon launches ({6 * (K - 1)} per step); limb split of the "
@@ -631,11 +830,23 @@ def main() -> int:
             f"max|norm-1| {norm_extp:.2e}; |extp - f64| {tier_diff:.2e} (bound {N13_TIER_ATOL:g}), "
             f"energy |extp - f64| {e_diff:.1e} rad/s; vs expm_multiply oracle at t=dt {o_err} "
             f"(bound {N13_ORACLE_ATOL:g}; oracle {o_sec:.1f} s on the host, nnz {nnz})")
+
+        n12 = n12_ext(oracles[12])
+        st = n12["stages_s"]
+        say(f"[10/11] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
+            f"(auto -> ext) {n12['wall_s']:.2f} s wall, stages {st}; n_sq {n12['n_sq']}: "
+            f"{n12['products']} (8192)^3 ext products, {n12['s_per_product']:.3f} s each "
+            f"(int8 tensor-core bound {n12['product_bound_s']:.3f} s); launches "
+            f"{n12['launches']}; max|norm-1| {n12['norm_dev']!r} (bound {N12_NORM_ATOL:g}); Iz_sea[0] {n12['iz0']!r}; "
+            f"vs cheb_step f64 over {N12_CHECK_STEPS} steps {n12['vs_cheb_step']:.2e}, vs "
+            f"expm_multiply oracle at t=dt {n12['vs_oracle']:.2e} (bound {N12_ATOL:g}; oracle "
+            f"{n12['oracle_s']:.1f} s on the host)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        if oracle.is_alive():
-            oracle.terminate()
-        oracle.join(timeout=30)
+        for proc, _ in oracles.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
 
     n13 = {"shape": shape, "setup_s": setup, "simulate_rare_wall_s": sim_wall,
            "f64": {k: v for k, v in f64.items() if k != "rows"},
@@ -680,8 +891,25 @@ def main() -> int:
             "shapes": limb,
             "n13": n13,
         },
+        {
+            "name": "ext_obs_diagonals_int8",
+            "route": "cuda",
+            "source": "quantumsimulations_tpu_torch/csrc/ext_obs_diagonals.cu",
+            "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:200",
+            "launches": n12["launches"]["ext_obs_diagonals_int8"],
+            "max_abs_err": max(r["max_abs_err"] for r in obs.values()),
+            "ms": at_path["ms"],
+            "kernel_ms": at_path["ms"],
+            "plain_ms": at_path["plain_ms"],
+            "bound_ms": at_path["bound_ms"],
+            "bound_by": at_path["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the per-site limb-pair sums",
+            "shapes": {str(k): v for k, v in obs.items()},
+            "n12": n12,
+        },
     ]
-    say(f"[9/9] total {time.perf_counter() - t_start:.1f} s; kernels:")
+    say(f"[11/11] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

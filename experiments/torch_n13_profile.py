@@ -56,10 +56,11 @@ def main(argv=None) -> int:
     for arith in args.tiers:
         engine = cs._engine_for(model.hamiltonian, lam, arith, None, dev)
         so = engine["so"]
-        if engine["apply_ext"] is not None:
-            run = cs._make_step_run_ext(engine["apply_ext"], engine["grid_ops"], K, c_re, c_im, dev)
-        else:
-            run = cs._make_step_run(engine["apply_ht"], K, c_re, c_im, dev)
+        coeffs = cs._step_coefficients(c_re, c_im, dev)
+
+        def run(P, n, engine=engine, coeffs=coeffs):
+            return engine["run"](P, n, *coeffs)
+
         psi = model.psi0
         P = torch.as_tensor(np.stack([psi.real, psi.imag]).reshape(2, so.DL, so.DR), device=dev)
         run(P, 1)  # warm-up: module loads, allocator

@@ -15,9 +15,10 @@ Hopper live in ``csrc/`` and are built with nvcc on first use
 ``"cuda"``; pass ``device="cpu"`` to run on the host.
 
 Ported so far: the sea-detuning sweep with the dense eigendecomposition
-solvers ("auto" up to dim 2048, "eig", "eig32"), and the beyond-dense
-Chebyshev stepper ("cheb_step", "auto" above dim 8192) with its "f64",
-"ext" and "extp" arithmetic tiers.  ROADMAP.md lists the rest.
+solvers ("auto" up to dim 2048, "eig", "eig32"), the dense exact-limb
+step-operator chain ("ext", "auto" for 2048 < dim <= 8192), and the
+beyond-dense Chebyshev stepper ("cheb_step", "auto" above dim 8192) with its
+"f64", "ext" and "extp" arithmetic tiers.  ROADMAP.md lists the rest.
 """
 
 from __future__ import annotations

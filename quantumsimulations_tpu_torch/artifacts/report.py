@@ -7,7 +7,7 @@ reference sweep driver (sweep_sea_detuning.py:557-1150): a parameter page,
 four plots per detuning point, a summary metrics table, and the
 contrast-vs-eta scatter.
 
-Not yet ported: the reprocessor's pages (ROADMAP.md queue 1 item 8).
+Not yet ported: the reprocessor's pages (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ reprocess_sweep_results.py:291-319).  Layout per sweep:
         4x PNG plots
 
 The readers of this tree (``json_load``, ``load_trace_npz``) come with the
-reprocessors (ROADMAP.md queue 1 item 8).
+reprocessors (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ holding both planes.  Arithmetic tiers (``arithmetic=``):
     digits from exact float64 matmuls (ops/split_apply_ext.py);
   * ``"extp"`` — the same limb domain with every product through the
     hand-written CUDA kernel ``limb_matmul_canon`` (ops/limb_kernels.py);
-  * ``"limb"`` — not ported yet (ROADMAP.md queue 1 item 7).
+  * ``"limb"`` — not ported yet (ROADMAP.md queue 1 item 3).
 
 Each dispatch (``steps_per_dispatch`` output steps: the host loop's chunk
 between row fetches and checkpoints) stacks its pre-advance states and turns
@@ -53,7 +53,7 @@ from ..utils.profiling import StageTimer
 from .chebyshev import chebyshev_coefficients
 from .observables import site_xyz_expectations, state_norms
 
-_LIMB_TIER = "arithmetic 'limb' (ops/split_apply_limb.py) is not ported yet: ROADMAP.md queue 1 item 7"
+_LIMB_TIER = "arithmetic 'limb' (ops/split_apply_limb.py) is not ported yet: ROADMAP.md queue 1 item 3"
 
 
 class CooperativeStop(RuntimeError):
@@ -104,15 +104,25 @@ def _rot(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return x.flip(0) * c
 
 
-def _make_step_run(apply_stacked, K: int, c_re: np.ndarray, c_im: np.ndarray, dev):
-    """``run(P, n_steps) -> (P, states)``: advance n_steps output steps of
-    the float64 tier, stacking each pre-advance state (n_steps, 2, DL, DR).
-    ``apply_stacked`` computes (H / lambda) @ psi on stacked planes."""
-    cr = [float(x) for x in c_re]
+def _step_coefficients(c_re: np.ndarray, c_im: np.ndarray, dev) -> tuple[list[float], torch.Tensor]:
+    """One step's Chebyshev coefficients in the runs' form: the real parts
+    as Python floats and the imaginary parts as a (K, 2, 1, 1) tensor
+    (-c_im, c_im) for :func:`_rot`."""
+    K = len(c_re)
     ci = torch.as_tensor(np.stack([-c_im, c_im], axis=1).reshape(K, 2, 1, 1),
                          dtype=torch.float64, device=dev)
+    return [float(x) for x in c_re], ci
 
-    def run(P: torch.Tensor, n_steps: int):
+
+def _make_step_run(apply_stacked):
+    """``run(P, n_steps, cr, ci) -> (P, states)``: advance n_steps output
+    steps of the float64 tier, stacking each pre-advance state (n_steps, 2,
+    DL, DR).  ``apply_stacked`` computes (H / lambda) @ psi on stacked
+    planes; the coefficients (:func:`_step_coefficients`) come with every
+    call, as the JAX package passes them to its cached run."""
+
+    def run(P: torch.Tensor, n_steps: int, cr: list[float], ci: torch.Tensor):
+        K = len(cr)
         states = torch.empty((n_steps,) + tuple(P.shape), dtype=P.dtype, device=P.device)
         for step in range(n_steps):
             states[step] = P
@@ -134,19 +144,17 @@ def _make_step_run(apply_stacked, K: int, c_re: np.ndarray, c_im: np.ndarray, de
     return run
 
 
-def _make_step_run_ext(apply_stacked, grid_ops, K: int, c_re: np.ndarray, c_im: np.ndarray, dev):
+def _make_step_run_ext(apply_stacked, grid_ops):
     """Limb-domain variant of :func:`_make_step_run`: the recurrence state
     circulates as canonical int8 limb stacks (L, 2, DL, DR), so the per-term
     elementwise work is int32 carries; only the accumulator lives in float64,
     fed by one grouped limb evaluation per term.  Same (float64 planes in,
     float64 planes out) contract as the f64 run — checkpoints and rows are
     tier-agnostic."""
-    cr = [float(x) for x in c_re]
-    ci = torch.as_tensor(np.stack([-c_im, c_im], axis=1).reshape(K, 2, 1, 1),
-                         dtype=torch.float64, device=dev)
     split, carry, val = grid_ops.split, grid_ops.carry, grid_ops.val
 
-    def run(P: torch.Tensor, n_steps: int):
+    def run(P: torch.Tensor, n_steps: int, cr: list[float], ci: torch.Tensor):
+        K = len(cr)
         states = torch.empty((n_steps,) + tuple(P.shape), dtype=P.dtype, device=P.device)
         for step in range(n_steps):
             states[step] = P
@@ -208,7 +216,7 @@ _ENGINE_CACHE_MAX = 8
 
 def clear_engine_cache() -> int:
     """Release every cached engine (operator device buffers, apply closures,
-    per-K runs, and the strong H references that pin them).  Returns the
+    step runs, and the strong H references that pin them).  Returns the
     number of entries released."""
     n = len(_ENGINE_CACHE)
     _ENGINE_CACHE.clear()
@@ -228,7 +236,7 @@ def _engine_for(H: OperatorSum, lam: float, arith: str, split: int | None, dev: 
     hit = _ENGINE_CACHE.get(key)
     if hit is not None and hit["H"] is H:
         return hit
-    entry: dict = {"H": H, "runs": {}}
+    entry: dict = {"H": H}
     if arith in ("ext", "extp"):
         from ..ops import split_apply_ext as spx
 
@@ -238,30 +246,19 @@ def _engine_for(H: OperatorSum, lam: float, arith: str, split: int | None, dev: 
         def apply_ht(P: torch.Tensor) -> torch.Tensor:  # f64 facade (e0 only)
             return grid_ops.val(apply_ext.stacked(grid_ops.split(P)))
 
-        entry.update(apply_ht=apply_ht, apply_ext=apply_ext.stacked, grid_ops=grid_ops, so=so)
+        entry.update(apply_ht=apply_ht, so=so,
+                     run=_make_step_run_ext(apply_ext.stacked, grid_ops))
     elif arith == "limb":
         raise NotImplementedError(_LIMB_TIER)
     elif arith == "f64":
         apply_ht, so = make_split_apply(H, split=split, scale=1.0 / lam, device=dev)
-        entry.update(apply_ht=apply_ht.stacked, apply_ext=None, grid_ops=None, so=so)
+        entry.update(apply_ht=apply_ht.stacked, so=so, run=_make_step_run(apply_ht.stacked))
     else:
         raise ValueError(f"unknown arithmetic {arith!r} (use 'f64', 'limb', 'ext', or 'extp')")
     while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
         _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
     _ENGINE_CACHE[key] = entry
     return entry
-
-
-def _engine_run(entry: dict, K: int, c_re: np.ndarray, c_im: np.ndarray, dev):
-    """The n-step run for one engine at K terms/step (cached per K)."""
-    run = entry["runs"].get(K)
-    if run is None:
-        if entry["apply_ext"] is not None:
-            run = _make_step_run_ext(entry["apply_ext"], entry["grid_ops"], K, c_re, c_im, dev)
-        else:
-            run = _make_step_run(entry["apply_ht"], K, c_re, c_im, dev)
-        entry["runs"][K] = run
-    return run
 
 
 def _default_steps_per_dispatch(dim: int) -> int:
@@ -363,7 +360,8 @@ def chebyshev_step_traces(
         # <H> at t=0, conserved under the (unitary) propagation
         e0 = float(lam * float((P0 * h0).sum()))
 
-    run = _engine_run(engine, K, c_re, c_im, dev)
+    run = engine["run"]
+    cr, ci = _step_coefficients(c_re, c_im, dev)
 
     done = 0
     flats: list[np.ndarray] = []
@@ -407,7 +405,7 @@ def chebyshev_step_traces(
     while done < T:
         n = min(spd, T - done)
         with stage("stepping"):
-            P, states = run(P, n)
+            P, states = run(P, n, cr, ci)
         with stage("rows"):
             flat = _rows_of_stack(states, sea_mask, e0, dims, idx_rare)
             flats.append(flat.cpu().numpy())  # value fetch = sync point

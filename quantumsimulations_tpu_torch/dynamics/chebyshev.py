@@ -7,7 +7,7 @@ the one piece of that module the Chebyshev stepper (cheb_step.py) needs:
     c_k(x) = (2 - delta_k0) (-i)^k J_k(x).
 
 Not ported yet: the global Chebyshev sweep (``chebyshev_states``,
-``chebyshev_traces_assembled``), ROADMAP.md queue 1 item 7.
+``chebyshev_traces_assembled``), ROADMAP.md queue 1 item 3.
 """
 
 from __future__ import annotations

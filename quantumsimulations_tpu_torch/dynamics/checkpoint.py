@@ -10,7 +10,7 @@ and the observable rows computed so far, tagged with a JSON fingerprint of
 the run.  On resume the operator is rebuilt (deterministically) and stepping
 continues bit-identically.  Not ported yet: the Krylov snapshot helpers
 (``save_snapshot``, ``krylov_propagate_traces_checkpointed``), ROADMAP.md
-queue 1 item 7.
+queue 1 item 3.
 """
 
 from __future__ import annotations

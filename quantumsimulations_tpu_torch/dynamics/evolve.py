@@ -8,13 +8,14 @@ Solver dispatch (params.solver_method) in this port:
   * "eig"   — dense eigendecomposition propagator (exact), complex128.
   * "eig32" — the same with the product in the float32 fused complex-matmul
               kernel (~1e-5 accuracy).
+  * "ext"   — the dense exact-limb step-operator chain
+              (expm_propagator.expm_traces_assembled_ext).
   * "cheb_step" — the split-matmul Chebyshev stepper (cheb_step.py), at its
               default arithmetic tier ("f64" on cuda and cpu).
   * "auto"  — as in the JAX package: "eig" up to dim 2048, "ext" up to dim
               8192, "cheb_step" above.
 
-The JAX package's other solvers are not ported yet; asking for one (or for
-"auto" between dim 2048 and 8192, where it picks "ext") raises
+The JAX package's other solvers are not ported yet; asking for one raises
 NotImplementedError naming the ROADMAP.md item that will port it.
 """
 
@@ -37,11 +38,10 @@ _EXT_MAX_DIM = 8192  # the JAX package's dense ext limb chain reaches this far
 
 #: where each solver of the JAX package is scheduled to be ported
 _NOT_PORTED = {
-    "ext": "ROADMAP.md queue 1 item 6 (dense exact-limb chain)",
-    "expm": "ROADMAP.md queue 1 item 7 (other solvers)",
-    "krylov": "ROADMAP.md queue 1 item 7 (other solvers)",
-    "chebyshev": "ROADMAP.md queue 1 item 7 (other solvers)",
-    "dopri": "ROADMAP.md queue 1 item 7 (other solvers)",
+    "expm": "ROADMAP.md queue 1 item 3 (other solvers)",
+    "krylov": "ROADMAP.md queue 1 item 3 (other solvers)",
+    "chebyshev": "ROADMAP.md queue 1 item 3 (other solvers)",
+    "dopri": "ROADMAP.md queue 1 item 3 (other solvers)",
 }
 
 
@@ -59,14 +59,18 @@ def check_method(method: str) -> None:
         raise NotImplementedError(
             f"solver_method {method!r} is not ported to PyTorch yet: {_NOT_PORTED[method]}"
         )
-    if method not in ("eig", "eig32", "cheb_step"):
+    if method not in ("eig", "eig32", "ext", "cheb_step"):
         raise ValueError(f"unknown solver_method: {method!r}")
 
 
 def simulate_rare(
-    params: DipolarRareParams, device: str | torch.device = "cuda"
+    params: DipolarRareParams, device: str | torch.device = "cuda", timer=None
 ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
-    """Run one time evolution; reference-compatible signature and outputs."""
+    """Run one time evolution; reference-compatible signature and outputs.
+
+    Port-only parameters: ``device`` (default "cuda"; raises without CUDA)
+    and ``timer``, a :class:`..utils.profiling.StageTimer` handed to the
+    stepping routes ("ext", "cheb_step") for their stage split."""
     if params.steps < 2 or params.t_final <= 0.0:
         raise ValueError("Bad time grid: steps >= 2 and t_final > 0.")
 
@@ -85,7 +89,20 @@ def simulate_rare(
 
         rows = chebyshev_step_traces(
             model.hamiltonian, model.psi0, t, dims,
-            model.n_sea_effective, model.idx_rare, device=device,
+            model.n_sea_effective, model.idx_rare, device=device, timer=timer,
+        )
+        named = traces_dict(rows)
+        named.pop("energy", None)
+        return t, named
+    if method == "ext":
+        # parity-grade dense step operator: a Taylor + squaring chain of
+        # exact integer limb products; only the 75-bit truncation is
+        # amplified across the squarings
+        from .expm_propagator import expm_traces_assembled_ext
+
+        rows = expm_traces_assembled_ext(
+            model.hamiltonian, model.psi0, t, dims,
+            model.n_sea_effective, model.idx_rare, device=device, timer=timer,
         )
         named = traces_dict(rows)
         named.pop("energy", None)

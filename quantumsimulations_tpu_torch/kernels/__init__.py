@@ -8,7 +8,9 @@ before the path and reads them after).
 
 from __future__ import annotations
 
-launch_counts: dict[str, int] = {"cmatmul_f32": 0, "limb_matmul_canon": 0}
+launch_counts: dict[str, int] = {
+    "cmatmul_f32": 0, "limb_matmul_canon": 0, "ext_obs_diagonals_int8": 0,
+}
 
 
 def reset_launch_counts() -> None:

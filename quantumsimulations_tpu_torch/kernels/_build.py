@@ -33,6 +33,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: every kernel source under csrc/ (one nvcc process each in build_all)
+SOURCES = ("cmatmul_f32", "limb_matmul_canon", "ext_obs_diagonals")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -84,7 +87,7 @@ def build(name: str, extra_flags: tuple[str, ...] = (), timeout: float = 600.0) 
 
 
 def build_all(
-    names: tuple[str, ...], extra_flags: tuple[str, ...] = (), timeout: float = 600.0
+    names: tuple[str, ...] = SOURCES, extra_flags: tuple[str, ...] = (), timeout: float = 600.0
 ) -> dict[str, tuple[str, float]]:
     """Build several sources at once, one nvcc process each, all started
     together.  Returns {name: (nvcc output, seconds)}; raises after every

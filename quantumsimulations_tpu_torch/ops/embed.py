@@ -18,7 +18,7 @@ dipolar_ensemble_with_rare.py:28-34).
 
 Not yet ported from ``quantumsimulations_tpu/ops/embed.py``: the matrix-free
 ``apply`` and ``to_dense_device``, which only the Krylov and global
-Chebyshev solvers use (ROADMAP.md queue 1 item 7).
+Chebyshev solvers use (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations

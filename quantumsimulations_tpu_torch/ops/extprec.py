@@ -1,0 +1,452 @@
+"""Fixed-grid extended precision ("ext"): ~75-bit values as canonical 5-bit
+limb stacks on a FIXED power-of-two grid.
+
+Port of the ext part of ``quantumsimulations_tpu/ops/extprec.py``:
+
+    value = sum_j l_j * 2^(EXT_E - 5*(j+1)),   l_j integer, |l_j| <= 16
+
+(limb 0 takes the top carry and reaches |l_0| <= 33).  Every chain value of
+the dense step-operator chain (dynamics/expm_propagator.py) is bounded, so
+the grid never moves: products land exactly ON grid positions, digit sums
+are exact integers, and renormalisation is an exact carry cascade.  The only
+error is the truncation below limb L.
+
+Limb products.  The JAX package runs each limb-pair product as an XLA dot
+``s8 x s8 -> s32``; here it is ``torch._int_mm`` (cuBLASLt's int8 GEMM on
+the card, an integer GEMM on the CPU).  The limb pairs of one significance
+diagonal are laid side by side along K, so each diagonal is one GEMM per
+Karatsuba term: the left operand is the limb stack concatenated along K
+(:class:`ExtLeft`), the right operand the limb stack in reversed limb order,
+so that the pairs (j, s - j) of diagonal s are one contiguous K range of
+both.  Int32 sums are exact in any order (headroom asserted as in the JAX
+package), so the digits, and every carried limb, equal the JAX package's bit
+for bit.  cuBLASLt takes int8 GEMMs with M > 16 and K, N multiples of 8;
+:func:`int_mm` pads smaller shapes with zeros, which changes no sum.
+
+The two limb splits of the Hamiltonian decide the bits of the whole chain
+(they may canonicalise ties differently, both exact), so both are ported as
+plain functions: the float32 triple split with native-f32 extraction
+(:func:`ext_split_upload`) and the host canonical split of COO values plus a
+scatter (:func:`ext_split_upload_coo_pair_host`).  What the JAX package adds
+around them for its TPU tunnel (flat 1-D uploads, the packed scatter
+program, the paired f32 upload) is left out: a tensor goes to the card with
+one ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from .limb_kernels import carry_digits
+
+EXT_LIMBS = 15  # 15 * 5 = 75 bits below the grid top
+EXT_GUARD = 2  # extra product diagonals computed below the last kept limb
+# Fixed grid top exponent; a multiple of 5 so that products of two
+# grid-aligned limbs land exactly on grid positions (s = j + i).
+EXT_E = 5
+#: columns of the flattened stack per float64 product in
+#: :func:`_ext_scalar_mul_traced` (1 GB of float64 transient at L = 15)
+_SCALAR_CHUNK = 1 << 23
+
+
+def _ext_w(j: int) -> float:
+    """Weight of limb j (exact power of two)."""
+    return float(2.0 ** (EXT_E - 5 * (j + 1)))
+
+
+def ext_split(x: torch.Tensor, L: int = EXT_LIMBS) -> torch.Tensor:
+    """float64 -> (L, ...) int8 canonical limbs on the fixed grid (exact
+    multiply / round-half-even / subtract steps, as ``jnp.rint``)."""
+    limbs = torch.empty((L,) + tuple(x.shape), dtype=torch.int8, device=x.device)
+    r = x.to(torch.float64) * (2.0 ** (5 - EXT_E))
+    for j in range(L):
+        lj = torch.round(r)
+        limbs[j] = lj.to(torch.int8)
+        r = (r - lj) * 32.0
+    return limbs
+
+
+def ext_split_host(x: np.ndarray, L: int = EXT_LIMBS) -> np.ndarray:
+    """Host (numpy) ext_split: float64 -> (L, ...) int8 canonical limbs."""
+    maxabs = float(np.abs(x).max()) if x.size else 0.0
+    assert maxabs < 2.0**EXT_E, (
+        f"ext_split_host domain violated: max|x| = {maxabs} >= 2^{EXT_E} "
+        "(out-of-grid input would silently corrupt the int8 limbs)"
+    )
+    limbs = np.empty((L,) + x.shape, np.int8)
+    r = np.array(x * (2.0 ** (5 - EXT_E)))
+    lj = np.empty_like(r)
+    for j in range(L):
+        np.rint(r, out=lj)
+        limbs[j] = lj
+        r -= lj
+        r *= 32.0
+    return limbs
+
+
+def ext_val(limbs: torch.Tensor) -> torch.Tensor:
+    """(L, ...) limbs -> float64 value, smallest significance first."""
+    out = torch.zeros(limbs.shape[1:], dtype=torch.float64, device=limbs.device)
+    for j in range(limbs.shape[0] - 1, -1, -1):
+        out = out + limbs[j].to(torch.float64) * _ext_w(j)
+    return out
+
+
+def _ext_carry(d: torch.Tensor) -> torch.Tensor:
+    """Exact carry cascade on float64 integer digits (L, ...) -> canonical
+    int8 limbs; carries round half to even (``jnp.rint``)."""
+    L = d.shape[0]
+    limbs = torch.empty(d.shape, dtype=torch.int8, device=d.device)
+    carry = torch.zeros_like(d[0])
+    for j in range(L - 1, 0, -1):
+        t = d[j] + carry
+        carry = torch.round(t * (1.0 / 32.0))
+        limbs[j] = (t - carry * 32.0).to(torch.int8)
+    limbs[0] = (d[0] + carry).to(torch.int8)
+    return limbs
+
+
+def _ext_carry_i32(d: torch.Tensor) -> torch.Tensor:
+    """Exact carry cascade on int32 digits -> canonical int8 limbs; carries
+    round half up (arithmetic shift), as the JAX package's ``_ext_carry_i32``.
+    Both cascades are exact; they differ on ties only."""
+    return carry_digits(d, 5)
+
+
+def ext_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact sum of two canonical ext stacks (same fixed grid)."""
+    return _ext_carry_i32(a.to(torch.int32) + b.to(torch.int32))
+
+
+def ext_neg(a: torch.Tensor) -> torch.Tensor:
+    return (-a.to(torch.int32)).to(torch.int8)
+
+
+def ext_scalar_limbs(c, L: int = EXT_LIMBS) -> tuple[float, ...]:
+    """Static 5-bit signed limb expansion of a host scalar on grid e = 0:
+
+        c = sum_i s_i * 2^(-5*(i+1)),  |s_i| <= 16  (exact to 5L bits)
+
+    Requires |c| < 1.  Pass a Fraction for exact rationals."""
+    assert abs(c) < 1.0
+    r = Fraction(c)
+    out = []
+    for _ in range(L):
+        r *= 32
+        s = int(round(r))
+        out.append(float(s))
+        r -= s
+    return tuple(out)
+
+
+def ext_scalar_mul(a: torch.Tensor, c_limbs) -> torch.Tensor:
+    """Exact ext * static-scalar product (scalar on grid e = 0, |c| < 1),
+    digits in float64 and the rint carry, as the JAX package's
+    ``ext_scalar_mul``.  Limb j times scalar limb i lands on position
+    j + i + 1; positions >= L are truncated."""
+    L = a.shape[0]
+    af = a.to(torch.float64)
+    d = torch.zeros((L + EXT_GUARD,) + tuple(a.shape[1:]), dtype=torch.float64, device=a.device)
+    for m in range(L + EXT_GUARD):
+        for i, ci in enumerate(c_limbs):
+            j = m - 1 - i
+            if 0 <= j < L and ci != 0.0:
+                d[m] = d[m] + af[j] * float(ci)
+    return _ext_carry(d)[:L]
+
+
+def _ext_scalar_mul_traced(a: torch.Tensor, cl) -> torch.Tensor:
+    """ext * scalar with the scalar's limbs ``cl`` given as data (the Taylor
+    1/k of the Horner loop): digits in int32, the shift carry.
+
+    Digit m is sum_i a[m - 1 - i] * cl[i], a short convolution along the
+    limb axis; it runs as one float64 matmul with a banded (L + G, L) matrix
+    of the scalar's limbs.  Every partial sum is an integer below 2^14, so
+    the float64 product is exact and equals the JAX package's int32 sum."""
+    L = a.shape[0]
+    cl = np.asarray(cl, dtype=np.float64)
+    band = np.zeros((L + EXT_GUARD, L))
+    for m in range(L + EXT_GUARD):
+        for i in range(min(len(cl), m)):
+            j = m - 1 - i
+            if 0 <= j < L:
+                band[m, j] = cl[i]
+    C = torch.as_tensor(band, device=a.device)
+    flat = a.reshape(L, -1)
+    d = torch.empty((L + EXT_GUARD, flat.shape[1]), dtype=torch.int32, device=a.device)
+    for c0 in range(0, flat.shape[1], _SCALAR_CHUNK):  # bounds the float64 transient
+        c1 = c0 + _SCALAR_CHUNK
+        d[:, c0:c1] = C @ flat[:, c0:c1].to(torch.float64)
+    return carry_digits(d.reshape((L + EXT_GUARD,) + tuple(a.shape[1:])), 5, L)
+
+
+def _ext_pairs(L: int) -> tuple[np.ndarray, np.ndarray]:
+    """(j, i) limb-pair indices of every kept product diagonal (j + i =
+    s < L + EXT_GUARD, both < L), ordered by (s, j)."""
+    pairs = [
+        (j, s - j)
+        for s in range(L + EXT_GUARD)
+        for j in range(max(0, s - L + 1), min(s + 1, L))
+    ]
+    jj = np.asarray([p[0] for p in pairs], np.int32)
+    ii = np.asarray([p[1] for p in pairs], np.int32)
+    return jj, ii
+
+
+# ---------------------------------------------------------------------------
+# Limb products through int8 GEMMs
+# ---------------------------------------------------------------------------
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact, via ``torch._int_mm``.
+
+    cuBLASLt takes M > 16 and K, N multiples of 8; smaller or ragged
+    operands are padded with zeros here (the same rule on every device, so
+    the CPU tests run this path too)."""
+    M, K = a.shape
+    N = b.shape[1]
+    pm, pk, pn = max(17 - M, 0), (-K) % 8, (-N) % 8
+    if pm or pk:
+        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = torch.nn.functional.pad(b, (0, pn, 0, pk))
+    out = torch._int_mm(a, b)
+    return out[:M, :N] if (pm or pn) else out
+
+
+@dataclass
+class ExtLeft:
+    """Left operand of :func:`ext_cmatmul`, prepared once for many products:
+    the real, imaginary and Karatsuba-sum limb stacks (L, M, K) laid out as
+    (M, L * K) int8, limb j at columns [j*K, (j+1)*K)."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+    sum: torch.Tensor
+    L: int
+    K: int
+
+
+def _cat_k(a: torch.Tensor) -> torch.Tensor:
+    L, M, K = a.shape
+    return a.permute(1, 0, 2).contiguous().view(M, L * K)
+
+
+def ext_left(are: torch.Tensor, aim: torch.Tensor) -> ExtLeft:
+    L, _, K = are.shape
+    # Karatsuba limb sums: canonical limbs are <= 16, limb 0 <= 33, so the
+    # sums are <= 66 and exact in int8
+    return ExtLeft(_cat_k(are), _cat_k(aim), _cat_k(are + aim), L, K)
+
+
+def _right_rev(b: torch.Tensor) -> torch.Tensor:
+    """(L, K, N) limb stack -> (N, L * K) int8, limbs in REVERSED order:
+    limb i at columns [(L-1-i)*K, (L-i)*K).  Its transpose is the (L*K, N)
+    right operand whose K range [(L-1-s+j0)*K, (L-1-s+j1)*K) pairs limb
+    s - j with limb j of the left operand for j0 <= j < j1.
+
+    The copy must be K-contiguous: a view of the permuted stack (which
+    ``reshape`` would return, the limb and K axes merging) is N-contiguous,
+    and cuBLASLt then takes a non-tensor-core int8 kernel ~8x slower."""
+    L, K, N = b.shape
+    return b.flip(0).permute(2, 0, 1).contiguous().view(N, L * K)
+
+
+def _ext_cpanel_product(left: ExtLeft, b_re: torch.Tensor, b_im: torch.Tensor):
+    """Exact diagonals + carry for (full ext A) @ (ext B panel).
+
+    Karatsuba complex product, 3 int8 GEMMs per diagonal:
+
+        m1 = a_re @ b_re,  m2 = a_im @ b_im,  m3 = (a_re+a_im) @ (b_re+b_im)
+        re = m1 - m2,      im = m3 - m1 - m2
+
+    Each GEMM sums the diagonal's limb pairs along its K; EXT_GUARD extra
+    diagonals below the last kept limb feed carries upward and are then
+    dropped, as in the JAX package."""
+    L, K = left.L, left.K
+    N = b_re.shape[2]
+    r_re, r_im, r_sum = _right_rev(b_re), _right_rev(b_im), _right_rev(b_re + b_im)
+    M = left.re.shape[0]
+    d_re = torch.empty((L + EXT_GUARD, M, N), dtype=torch.int32, device=b_re.device)
+    d_im = torch.empty_like(d_re)
+    for s in range(L + EXT_GUARD):
+        j0, j1 = max(0, s - L + 1), min(s + 1, L)
+        ka = slice(j0 * K, j1 * K)
+        kb = slice((L - 1 - s + j0) * K, (L - 1 - s + j1) * K)
+        m1 = int_mm(left.re[:, ka], r_re[:, kb].t())
+        m2 = int_mm(left.im[:, ka], r_im[:, kb].t())
+        m3 = int_mm(left.sum[:, ka], r_sum[:, kb].t())
+        torch.sub(m1, m2, out=d_re[s])
+        m3.sub_(m1).sub_(m2)
+        d_im[s] = m3
+    return carry_digits(d_re, 5, L), carry_digits(d_im, 5, L)
+
+
+def ext_cmatmul(
+    are: torch.Tensor | ExtLeft,
+    aim: torch.Tensor | None,
+    bre: torch.Tensor,
+    bim: torch.Tensor,
+    panel: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-to-truncation complex matmul of canonical ext stacks.
+
+    (L, M, K) @ (L, K, N) int8 canonical limbs -> (L, M, N).  ``are`` may be
+    an :class:`ExtLeft` (``aim`` then None) prepared once for several
+    products with the same left operand.  ``panel`` bounds the int32 digit
+    workspace to (L + EXT_GUARD, M, panel) per plane; the values do not
+    depend on it."""
+    assert EXT_E == 5, "product grid alignment requires EXT_E == 5"
+    left = are if isinstance(are, ExtLeft) else ext_left(are, aim)
+    L, K = left.L, left.K
+    # i32 headroom (Karatsuba): per limb pair |m3| <= K*66*66, |m1|,|m2| <=
+    # K*33*33, so |im digit| <= K*6534; a diagonal sums up to L pairs
+    assert K * 6534 * L < 2**31, "i32 would overflow in ext_cmatmul"
+    assert bre.shape[0] == L and bre.shape[1] == K, (bre.shape, L, K)
+    N = bre.shape[2]
+    M = left.re.shape[0]
+    panel = max(1, min(panel, N))
+    if panel >= N:
+        return _ext_cpanel_product(left, bre, bim)
+    c_re = torch.empty((L, M, N), dtype=torch.int8, device=bre.device)
+    c_im = torch.empty_like(c_re)
+    for p0 in range(0, N, panel):
+        p1 = min(p0 + panel, N)
+        o_re, o_im = _ext_cpanel_product(left, bre[:, :, p0:p1], bim[:, :, p0:p1])
+        c_re[:, :, p0:p1] = o_re
+        c_im[:, :, p0:p1] = o_im
+    return c_re, c_im
+
+
+def ext_taylor_horner(
+    are: torch.Tensor,
+    aim: torch.Tensor,
+    coeff_limbs: np.ndarray,  # (degree+1, Lc): limbs of 1/k at row k
+    degree: int,
+    panel: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """D = Horner(exp(A) - I) in the exact limb domain:
+    D <- A + (A @ D) * (1/k) for k = degree .. 2, starting from D = A.
+
+    The JAX package runs the recursion per column panel (columns of D are
+    independent through it) to bound TPU memory; the values are the same
+    whole-matrix or panel by panel."""
+    left = ext_left(are, aim)
+    d_re, d_im = are, aim
+    for k in range(degree, 1, -1):
+        d_re, d_im = ext_horner_step(left, are, aim, d_re, d_im, coeff_limbs[k], panel)
+    return d_re, d_im
+
+
+def ext_horner_step(left: ExtLeft, are, aim, d_re, d_im, cl, panel: int = 512):
+    """One Horner step D <- A + (A @ D) * c, the scalar c given by its limbs
+    ``cl`` and A both as limb stacks and as its prepared left operand."""
+    p_re, p_im = ext_cmatmul(left, None, d_re, d_im, panel=panel)
+    return (ext_add(are, _ext_scalar_mul_traced(p_re, cl)),
+            ext_add(aim, _ext_scalar_mul_traced(p_im, cl)))
+
+
+def taylor_coeff_limbs(degree: int, Lc: int = EXT_LIMBS) -> np.ndarray:
+    """(degree+1, Lc) exact limb expansions of 1/k (row k; rows 0, 1 unused)."""
+    out = np.zeros((degree + 1, Lc))
+    for k in range(2, degree + 1):
+        out[k] = np.asarray(ext_scalar_limbs(Fraction(1, k), Lc))
+    return out
+
+
+def ext_add_identity(a: torch.Tensor) -> torch.Tensor:
+    """a + I in the limb domain (1.0 sits exactly on limb 0: w(0) = 1)."""
+    out = a.clone()
+    out[0].diagonal().add_(1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The two limb splits of a host matrix
+# ---------------------------------------------------------------------------
+
+
+def f32_triple_split_host(x: np.ndarray):
+    """Exact x = a1 + a2 + a3 with a_k float32 (lossless for |x| < 2^127)."""
+    a1 = x.astype(np.float32)
+    r = x - a1
+    a2 = r.astype(np.float32)
+    r -= a2
+    a3 = r.astype(np.float32)
+    return a1, a2, a3
+
+
+def _ext_carry_i8_digits(d8: torch.Tensor) -> torch.Tensor:
+    """Carry cascade over small int8 digits (|d| <= 48, sums of <= 3 exact
+    limb extractions) -> canonical int8 limbs: the int32 cascade, one limb
+    widened at a time."""
+    L = d8.shape[0]
+    limbs = torch.empty_like(d8)
+    carry = torch.zeros(d8.shape[1:], dtype=torch.int32, device=d8.device)
+    for j in range(L - 1, 0, -1):
+        t = d8[j].to(torch.int32) + carry
+        carry = (t + 16) >> 5
+        limbs[j] = torch.sub(t, carry, alpha=32)
+    limbs[0] = d8[0].to(torch.int32) + carry
+    return limbs
+
+
+def _ext_limbs_from_f32_planes(planes, L: int) -> torch.Tensor:
+    """(L, *shape) int8 canonical limbs from the three float32 planes of
+    :func:`f32_triple_split_host` (on the device).  Each plane's limbs are
+    extracted in native float32 (round / subtract / scale by 32 are exact on
+    5-bit steps of a 24-bit significand), summed as int8 digits, then
+    carried."""
+    shape = tuple(planes[0].shape)
+    digits = torch.zeros((L,) + shape, dtype=torch.int8, device=planes[0].device)
+    for plane in planes:
+        r = plane * float(2.0 ** (5 - EXT_E))
+        for j in range(L):
+            lj = torch.round(r)
+            digits[j] += lj.to(torch.int8)
+            r = (r - lj) * 32.0
+    return _ext_carry_i8_digits(digits)
+
+
+def ext_split_upload(x: np.ndarray, L: int = EXT_LIMBS, device="cpu") -> torch.Tensor:
+    """Host float64 array -> (L, ...) int8 canonical ext limbs on ``device``,
+    through the float32 triple split (:func:`_ext_limbs_from_f32_planes`).
+    The JAX package's split below its chunk dim, and always for psi0."""
+    maxabs = float(np.abs(x).max()) if x.size else 0.0
+    assert maxabs < 2.0**EXT_E, (
+        f"ext_split_upload domain violated: max|x| = {maxabs} >= 2^{EXT_E}"
+    )
+    planes = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in f32_triple_split_host(np.ascontiguousarray(x))]
+    return _ext_limbs_from_f32_planes(planes, L)
+
+
+def ext_split_upload_coo_pair_host(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    v_a: np.ndarray,
+    v_b: np.ndarray,
+    dim: int,
+    L: int = EXT_LIMBS,
+    device="cpu",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """COO pair -> two dense (L, dim, dim) limb stacks: the host canonical
+    split of the value vectors (:func:`ext_split_host`) scattered into
+    zeros on ``device``.  The JAX package's split at and above its chunk
+    dim.  Indices must be duplicate-free (``OperatorSum.to_coo`` aggregates)."""
+    assert rows.shape == cols.shape == v_a.shape == v_b.shape
+    assert dim * dim < 2**31
+    lr = torch.from_numpy(ext_split_host(np.ascontiguousarray(v_a), L)).to(device)
+    li = torch.from_numpy(ext_split_host(np.ascontiguousarray(v_b), L)).to(device)
+    idx = torch.from_numpy(rows.astype(np.int64) * dim + cols.astype(np.int64)).to(device)
+    out = []
+    for limbs in (lr, li):
+        dense = torch.zeros((L, dim * dim), dtype=torch.int8, device=device)
+        dense[:, idx] = limbs
+        out.append(dense.reshape(L, dim, dim))
+    return out[0], out[1]

@@ -75,8 +75,8 @@ def product_digits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Digit s is sum_j a[j] @ b[s - j], computed as ONE float64 matmul of the
     pairs' limbs laid side by side along K.  Every partial sum is an integer
     below 2^31, far under 2^53, so the float64 product is exact in any
-    order; it is also the one form that runs on both CPU and CUDA (PyTorch
-    has no integer matmul on CUDA).
+    order, on the CPU and on CUDA.  (``torch._int_mm``, an int8 GEMM on
+    both, would give the same digits; ops/extprec.py uses it.)
     """
     L, M, K = a.shape
     N = b.shape[2]

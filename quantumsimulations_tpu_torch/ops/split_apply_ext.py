@@ -39,7 +39,7 @@ batched gather-multiply-``index_add_`` over the 72 limb pairs; int32 sums are
 exact in any order, so the bits are those of the JAX package's 72 separate
 products.
 
-Not ported yet: ``make_ext_apply_sharded`` (ROADMAP.md queue 1 item 9).
+Not ported yet: ``make_ext_apply_sharded`` (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -16,12 +16,13 @@ points whose metrics.json already exists.
 Differences from the JAX package's runner:
   * ``device=`` picks the torch device (default "cuda"; never a silent CPU
     fallback).
-  * Only the batched eigendecomposition route is ported.  As in the JAX
-    package, "cheb_step" (like "auto") is solved on it; the stepping
-    solvers the JAX runner solves one by one (expm, ext, krylov, chebyshev,
-    dopri) raise NotImplementedError before anything is written, and
-    ``mesh`` (the data-parallel sharded batch) raises too (ROADMAP.md
-    queue 1 item 9).
+  * Of the stepping solvers the JAX runner solves one by one, "ext" is
+    ported (:func:`_solve_one_stepping`, with mid-solve snapshots under
+    ``<base_dir>/.solver_ckpt/simNNNN``, cleared as each solve succeeds);
+    expm, krylov, chebyshev and dopri raise NotImplementedError before
+    anything is written.  As in the JAX package, "cheb_step" (like "auto")
+    is solved on the batched eigendecomposition route.  ``mesh`` (the
+    data-parallel sharded batch) raises too (ROADMAP.md queue 1 item 5).
   * matplotlib is imported only when ``make_plots`` is on, so a sweep
     without plots runs where matplotlib is not installed.  (With plots off
     the reference opens an empty PdfPages, which writes no file, so the
@@ -79,16 +80,41 @@ TAGS = ("center_off", "center_on", "shell_off")
 _MAX_BATCH_BYTES = 2 << 30
 
 
+def _solve_one_stepping(
+    model, times, method: str, ckpt_dir: str | None = None, device="cuda"
+) -> dict[str, np.ndarray]:
+    """One simulation through a stepping backend, as a named trace dict.
+
+    ``ckpt_dir`` enables mid-solve advance snapshots, so a killed sweep
+    resumes inside a long solve, not only at point granularity
+    (dynamics/checkpoint.py)."""
+    if method != "ext":
+        raise ValueError(f"{method!r} is not a stepping solver")
+    from ..dynamics.expm_propagator import expm_traces_assembled_ext
+
+    rows = expm_traces_assembled_ext(
+        model.hamiltonian, model.psi0, times, model.dims,
+        model.n_sea_effective, model.idx_rare, ckpt_dir=ckpt_dir, device=device,
+    )
+    return traces_dict(rows)
+
+
 def _solve_group(
-    models, times, log=print, solver_method="auto", device="cuda"
+    models, times, log=print, solver_method="auto", device="cuda", ckpt_dirs=None
 ) -> list[dict[str, np.ndarray]]:
     """Batched exact solve for models sharing identical Hilbert dims.
 
     Returns one reference-named trace dict per model; the observables are
-    assembled on the device and only the (B, 8, T) rows come back.
+    assembled on the device and only the (B, 8, T) rows come back.  The
+    stepping solver "ext" solves model by model instead (``ckpt_dirs``: one
+    snapshot directory per model, or None).
     """
     method = "eig" if solver_method == "auto" else solver_method
     check_method(method)
+    if method == "ext":
+        ckpt_dirs = ckpt_dirs or [None] * len(models)
+        return [_solve_one_stepping(m, times, method, ckpt_dir=ck, device=device)
+                for m, ck in zip(models, ckpt_dirs)]
     solve_fn = eig_traces_assembled_batched32 if method == "eig32" else eig_traces_assembled_batched
 
     dims = models[0].dims
@@ -158,7 +184,7 @@ def run_sweep_sea_detuning(
     if mesh is not None:
         raise NotImplementedError(
             "the sharded sweep (mesh=) is not ported to PyTorch yet: "
-            "ROADMAP.md queue 1 item 9 (parallel)"
+            "ROADMAP.md queue 1 item 5 (parallel)"
         )
     check_method("eig" if solver_method == "auto" else solver_method)
     dev = resolve_device(device)
@@ -323,9 +349,15 @@ def run_sweep_sea_detuning(
     t_solve0 = time.perf_counter()
     with timer.stage("solve"):
         for dims_key, sim_ids in by_dims.items():
+            # the stepping solver snapshots mid-solve under the sweep dir, so
+            # a killed run resumes inside a long solve (cleared on success)
+            ckpt_dirs = [
+                os.path.join(base_dir, ".solver_ckpt", f"sim{i:04d}")
+                for i in sim_ids
+            ] if solver_method == "ext" else None
             outs = _solve_group(
                 [sims[i][3] for i in sim_ids], times,
-                solver_method=solver_method, device=dev,
+                solver_method=solver_method, device=dev, ckpt_dirs=ckpt_dirs,
             )
             for i, out in zip(sim_ids, outs):
                 idx, tag, _, _ = sims[i]

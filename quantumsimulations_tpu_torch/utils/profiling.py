@@ -7,7 +7,7 @@ asynchronous, so on a CUDA device each stage ends with
 ``torch.cuda.synchronize()`` before its clock is read.
 
 Not yet ported from ``quantumsimulations_tpu/utils/profiling.py``: the
-profiler trace context and the NaN-debug mode (ROADMAP.md queue 1 item 10).
+profiler trace context and the NaN-debug mode (ROADMAP.md queue 1 item 2).
 """
 
 from __future__ import annotations

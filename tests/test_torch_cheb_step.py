@@ -251,7 +251,7 @@ def test_auto_route_and_default_tier():
 
 def test_limb_tier_raises_naming_roadmap_item():
     _, args = _n4()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
         tcs.chebyshev_step_traces(*args, arithmetic="limb", device="cpu")
 
 
@@ -266,6 +266,33 @@ def test_engine_cache_reuse_and_clear():
     assert len(tcs._ENGINE_CACHE) == 1
     np.testing.assert_array_equal(rows1, rows2)
     assert tcs.clear_engine_cache() == 1
+
+
+@pytest.mark.parametrize("arith", ["f64", "ext"])
+def test_new_dt_at_equal_K_steps_with_its_own_coefficients(arith):
+    """Two calls on one H object whose dt differ but give the same K: the
+    second call must step with its own coefficients.  Its rows equal a fresh
+    engine's bit for bit and the JAX package's within the file's 1e-12."""
+    mj, mt = _models("n5")
+    t1, t2 = np.linspace(0.0, 1.0e-4, 3), np.linspace(0.0, 1.0002e-4, 3)
+    assert tcoef(LAM, t1[1:2]).shape == tcoef(LAM, t2[1:2]).shape  # equal K
+    assert not np.array_equal(tcoef(LAM, t1[1:2]), tcoef(LAM, t2[1:2]))
+
+    def port(t):
+        return tcs.chebyshev_step_traces(
+            mt.hamiltonian, mt.psi0, t, mt.dims, mt.n_sea_effective, mt.idx_rare,
+            norm_bound=LAM, arithmetic=arith, device="cpu")
+
+    tcs.clear_engine_cache()
+    port(t1)
+    second = port(t2)
+    tcs.clear_engine_cache()
+    fresh = port(t2)
+    np.testing.assert_array_equal(second, fresh)
+    ref = jcs.chebyshev_step_traces(
+        mj.hamiltonian, mj.psi0, t2, mj.dims, mj.n_sea_effective, mj.idx_rare,
+        norm_bound=LAM, arithmetic=arith)
+    assert np.abs(second - ref).max() <= 1e-12
 
 
 @pytest.mark.parametrize("dim", [128, 8192, 16384, 32768, 1 << 16])

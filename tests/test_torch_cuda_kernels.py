@@ -11,7 +11,11 @@ largest magnitude (both IEEE float32, summed in another order); the eig32
 propagator against the float64 one, 2e-4 (the JAX package's bar);
 limb_matmul_canon against its plain version, equal bit for bit (int32 sums
 are exact in any order); the extp Chebyshev stepper against the f64 one,
-1e-11 (the JAX package's bar, tests/test_limb_kernels.py:161).
+1e-11 (the JAX package's bar, tests/test_limb_kernels.py:161);
+ext_obs_diagonals_int8 against its plain version and the ext limb product
+(int8 GEMMs through cuBLASLt) against the CPU, equal bit for bit; the ext
+route's rows on the card against the CPU, 1e-13 (equal limbs, the float64
+observable combine summed in another order).
 """
 
 import numpy as np
@@ -20,10 +24,13 @@ import torch
 
 from quantumsimulations_tpu_torch.dynamics import cheb_step as tcs
 from quantumsimulations_tpu_torch.dynamics import eig_propagator as teig
+from quantumsimulations_tpu_torch.dynamics import expm_propagator as tep
 from quantumsimulations_tpu_torch.kernels import launch_counts
 from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.ops import cmatmul as cm
+from quantumsimulations_tpu_torch.ops import ext_obs as eo
+from quantumsimulations_tpu_torch.ops import extprec as ep
 from quantumsimulations_tpu_torch.ops import limb_kernels as lk
 
 pytestmark = pytest.mark.requires_cuda
@@ -189,3 +196,74 @@ def test_extp_steps_on_card_within_bound_of_f64(cuda_device):
     assert launch_counts["limb_matmul_canon"] > before
     assert np.abs(extp[:7] - f64[:7]).max() <= 1e-11
     assert np.abs(extp[6] - 1.0).max() < 1e-12
+
+
+JJ, II, _ = tep._EXT_PAIRS
+
+
+def _ext_limbs(shape, gen, device):
+    """Canonical-range limbs, limb 0 over its full range [-33, 33]."""
+    x = torch.randint(-16, 17, shape, generator=gen, device=device, dtype=torch.int32)
+    x[0] = torch.randint(-33, 34, shape[1:], generator=gen, device=device, dtype=torch.int32)
+    x[0, 0, 0], x[0, -1, -1] = 33, -33
+    return x.to(torch.int8).contiguous()
+
+
+@pytest.mark.parametrize("shape", [(15, 64, 200), (15, 256, 384), (11, 32, 1), (15, 2048, 130)])
+def test_ext_obs_kernel_matches_plain(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1] + shape[2])
+    S_re, S_im = _ext_limbs(shape, gen, cuda_device), _ext_limbs(shape, gen, cuda_device)
+    before = launch_counts["ext_obs_diagonals_int8"]
+    got = eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
+    torch.cuda.synchronize()
+    assert launch_counts["ext_obs_diagonals_int8"] == before + 1
+    want = eo.ext_obs_diagonals_plain(S_re, S_im, JJ, II, 11)
+    assert torch.equal(got, want)
+
+
+def test_ext_obs_kernel_takes_only_the_full_pair_triangle(cuda_device):
+    S = torch.zeros((15, 16, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="triangle"):
+        eo.ext_obs_diagonals_int8(S, S, JJ[:-1], II[:-1], 11)
+    with pytest.raises(ValueError, match="triangle"):
+        eo.ext_obs_diagonals_int8(S[:8], S[:8], JJ, II, 11)  # L < n_diag
+    with pytest.raises(ValueError, match="contiguous"):
+        eo.ext_obs_diagonals_int8(S[:, :, ::2], S[:, :, ::2], JJ, II, 11)
+
+
+def test_ext_obs_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(eo, "ext_obs_diagonals_plain", refuse)
+    S = torch.zeros((15, 16, 8), dtype=torch.int8, device=cuda_device)
+    assert eo.ext_obs_diagonals_int8(S, S, JJ, II, 11).is_cuda
+
+
+@pytest.mark.parametrize("M,K,N,panel", [(64, 64, 64, 64), (96, 40, 24, 16), (20, 16, 3, 512)])
+def test_ext_cmatmul_on_card_equals_cpu(cuda_device, M, K, N, panel):
+    gen = torch.Generator().manual_seed(M + K + N)
+    ops = [_ext_limbs(s, gen, "cpu") for s in ((15, M, K), (15, M, K), (15, K, N), (15, K, N))]
+    want = ep.ext_cmatmul(*ops, panel=panel)
+    got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops], panel=panel)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_ext_route_on_card_equals_cpu(cuda_device):
+    kw = dict(
+        n_sea=4, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
+        B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
+        omega_rf_sea=8.1812e7 * 3.0 - 2 * np.pi * 900.0, omega_rf_rare=6.976e7 * 3.0,
+        phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+        shell_scale=0.282393e-9, drive_sea=True, drive_rare=True, is_spin_three_half=False,
+    )
+    m = build_model(DipolarRareParams(**kw))
+    t = np.linspace(0.0, 0.0199, 200)
+    args = (m.hamiltonian, m.psi0, t, m.dims, m.n_sea_effective, m.idx_rare)
+    before = launch_counts["ext_obs_diagonals_int8"]
+    card = tep.expm_traces_assembled_ext(*args, block=128, device=cuda_device)
+    assert launch_counts["ext_obs_diagonals_int8"] > before
+    cpu = tep.expm_traces_assembled_ext(*args, block=128, device="cpu")
+    assert np.abs(card - cpu).max() <= 1e-13
+    assert np.abs(card[6] - 1.0).max() < 1e-12

@@ -236,6 +236,11 @@ def test_unported_solvers_raise(method, monkeypatch):
         # the stepper itself runs on the port; its "limb" tier does not yet
         monkeypatch.setenv("QST_CHEB_ARITH", "limb")
     kw = production_params_kwargs(3, t_final=1e-3, steps=10, solver_method=method)
+    if method == "ext":
+        # ported: the route runs (its parity tests: tests/test_torch_ext_route.py)
+        t, traces = tsim(TParams(**kw), device="cpu")
+        assert len(t) == 10 and np.abs(traces["state_norm"] - 1.0).max() < 1e-12
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         tsim(TParams(**kw), device="cpu")
 

@@ -47,8 +47,13 @@ def _probe(imports: str) -> tuple[list[str], bool]:
 
 @pytest.mark.parametrize(
     "imports",
-    [_ALL_PORT_MODULES, "import chip_smoke"],
-    ids=["every_port_module", "chip_smoke"],
+    [
+        _ALL_PORT_MODULES,
+        "import chip_smoke",
+        "import quantumsimulations_tpu_torch.ops.extprec, quantumsimulations_tpu_torch.ops.ext_obs, "
+        "quantumsimulations_tpu_torch.dynamics.expm_propagator",
+    ],
+    ids=["every_port_module", "chip_smoke", "ext_route_modules"],
 )
 def test_no_jax_and_no_reference_package(imports):
     assert _probe(imports)[0] == []

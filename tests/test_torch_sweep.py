@@ -183,6 +183,54 @@ def test_unported_solver_writes_nothing(tmp_path):
     assert not (tmp_path / "x").exists()
 
 
+EXT_SWEEP = dict(SWEEP, sea_detunings_Hz=[0.0, 50_000.0], steps=40, solver_method="ext")
+
+
+@pytest.fixture(scope="module")
+def ext_sweep_pair(tmp_path_factory):
+    """The same miniature sweep on the stepping solver "ext" (one solve per
+    simulation, snapshots under .solver_ckpt/simNNNN)."""
+    root = tmp_path_factory.mktemp("ext_sweeps")
+    port = tsweep(**EXT_SWEEP, base_dir=str(root / "port"), device="cpu")
+    ref = jsweep(**EXT_SWEEP, base_dir=str(root / "ref"))
+    return port, ref
+
+
+def test_ext_sweep_tree_and_values_match(ext_sweep_pair):
+    port, ref = ext_sweep_pair
+    tree = _tree(port)
+    assert tree == _tree(ref)
+    assert not [p for p in tree if ".solver_ckpt" in p]  # snapshots cleared
+    _assert_values_close(_load(os.path.join(port, "summary.json")),
+                         _load(os.path.join(ref, "summary.json")), "summary.json")
+    for name in sorted(p for p in tree if p.endswith(".npz") and "time_and_obs" in p):
+        got, want = np.load(os.path.join(port, name)), np.load(os.path.join(ref, name))
+        assert np.array_equal(got["t"], want["t"])
+        for key in want.files:
+            assert np.abs(got[key] - want[key]).max() <= 1e-12, (name, key)
+
+
+def test_ext_sweep_resumes_inside_a_solve(tmp_path, monkeypatch):
+    """A solve aborted after its first advance chunk leaves a snapshot under
+    <base_dir>/.solver_ckpt/sim0000; the rerun resumes it and the sweep's
+    traces equal an uninterrupted sweep's bit for bit."""
+    cfg = dict(EXT_SWEEP, sea_detunings_Hz=[0.0], steps=2100, t_final=0.021)  # 5 blocks
+    full = tsweep(**cfg, base_dir=str(tmp_path / "full"), device="cpu")
+    base = tmp_path / "cut"
+    monkeypatch.setenv("QST_EXT_ABORT_AFTER_CHUNKS", "1")
+    with pytest.raises(RuntimeError, match="aborted after 1 advance chunks"):
+        tsweep(**cfg, base_dir=str(base), device="cpu")
+    assert (base / ".solver_ckpt" / "sim0000" / "ext_advance.npz").is_file()
+    monkeypatch.delenv("QST_EXT_ABORT_AFTER_CHUNKS")
+    tsweep(**cfg, base_dir=str(base), device="cpu")
+    assert not (base / ".solver_ckpt" / "sim0000" / "ext_advance.npz").exists()
+    for tag in ("center_off", "center_on", "shell_off"):
+        name = os.path.join("delta_p0.0Hz", f"time_and_obs_{tag}.npz")
+        got, want = np.load(base / name), np.load(os.path.join(full, name))
+        for key in want.files:
+            np.testing.assert_array_equal(got[key], want[key])
+
+
 def test_cli_flags_and_defaults_match_reference():
     def actions(parser):
         return {a.dest: (a.default, a.choices) for a in parser._actions if a.dest != "help"}
