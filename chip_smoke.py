@@ -20,28 +20,48 @@ Phases, each printing one line as it finishes:
      ragged small shape, at (15, 8192, 1024) and at the n12 advance's shape
      (15, 8192, 20480), on random canonical limbs with limb 0 at its full
      range, with CUDA-event timings of the kernel and the plain version;
-  6. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
+  6. z_expectations_f32 against its plain version on the card (the plain
+     version sums the same float32 products in float64), at the JAX test's
+     ragged shape (4 sites, dim 16, T 37, float64), at one eig32 model's
+     state block (7, 128, 20000) float32 and at (14, 16384, 2048) float64,
+     with CUDA-event timings of the kernel, the plain version and one
+     float32 matmul on a precomputed |psi|^2 (the library yardstick);
+  7. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
      artifact contract, the physics invariants and a host longdouble oracle;
-  7. the same sweep with the "eig32" solver, which must launch the f32
-     kernel and stay within 2e-4 of phase 6's traces;
-  8. n_sea=13 (dim 16384) at the production output spacing dt = 30/19999 s,
+  8. the same sweep with the "eig32" solver, which must launch the f32
+     kernel and stay within 2e-4 of phase 7's traces;
+  9. n_sea=13 (dim 16384) at the production output spacing dt = 30/19999 s,
      N13_STEPS output steps, through ``simulate_rare`` ("auto" ->
      "cheb_step", the "f64" tier on cuda), plus a timed run of the same
      tier through ``chebyshev_step_traces`` for its time split;
-  9. the same model and times through ``chebyshev_step_traces`` with
+ 10. the same model and times through ``chebyshev_step_traces`` with
      ``arithmetic="extp"``, which must launch limb_matmul_canon six times
-     per apply and agree with phase 8 within 1e-11; both tiers are held
+     per apply and agree with phase 9 within 1e-11; both tiers are held
      against a host oracle for the first interval (scipy expm_multiply,
      computed in a child process while the card works);
- 10. n_sea=12 (dim 8192), the JAX package's n12 workload (bench.py:258):
+ 11. n_sea=12 (dim 8192), the JAX package's n12 workload (bench.py:258):
      N12_STEPS output steps at the production spacing through
      ``simulate_rare`` ("auto" -> "ext"), which must launch
      ext_obs_diagonals_int8, keep the norm within N12_NORM_ATOL and agree within
      1e-10 with ``chebyshev_step_traces`` (f64) over the first 3 output
      steps and with a host expm_multiply oracle at t = dt (child process);
- 11. a JSON line with every kernel's launches and timings.
+ 12. the same n12 workload over its first N12_CHECK_STEPS output steps
+     through ``simulate_rare(solver_method="krylov")`` (matrix-free
+     Lanczos, ~273 substeps per output step), held against phase 11's f64
+     stepper rows and oracle within 1e-10, its norm within KRYLOV_NORM_ATOL;
+ 13. the n13 workload of phase 9 over CHEB_STEPS output steps of the
+     production spacing (~0.03 s, ~70,800 H applies): one global Chebyshev
+     sweep (``chebyshev_states``) whose states are assembled into the
+     route's rows as ``chebyshev_traces_assembled`` does, held against
+     phase 9's f64 rows (first 3 columns) and phase 10's oracle within
+     1e-10; then z_expectations_f32 on those states on the card, whose
+     sea-site sum and rare row must be within 1e-5 of the route's float64
+     Iz_sea and Iz_R, and within KERNEL_REL_TOL of its plain version; and
+     the public route ``simulate_rare(solver_method="chebyshev")`` at that
+     size, which must give the same rows;
+ 14. a JSON line with every kernel's launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  A watchdog ends the run with exit code 1 after
@@ -91,6 +111,21 @@ N12_CHECK_STEPS = 3
 #: workload (BENCH_r04.json, bench.py:258); the port's limbs are the same bit
 #: for bit, so its drift is held to that record with a factor 2 of room
 N12_NORM_ATOL = 2e-10
+#: krylov n12 max |state_norm - 1| over N12_CHECK_STEPS output steps: the
+#: JAX unit test's 1e-12 (tests/test_steppers.py:68) covers a few dozen
+#: substeps; here ~550 substeps each add rounding of order 1e-15
+KRYLOV_NORM_ATOL = 1e-11
+#: the global Chebyshev sweep at n13: output steps of the production spacing
+#: (t_final = 20 dt, ~0.03 s) and its norm bar
+CHEB_STEPS = 21
+CHEB_NORM_ATOL = 1e-10
+#: z_expectations_f32 on the route's states vs its float64 Iz rows (the JAX
+#: test's bar, tests/test_pallas_kernels.py:65)
+ZEXP_ROUTE_ATOL = 1e-5
+#: z_expectations_f32 shapes (n_sites, dim, T, dtype) held against the plain
+#: version before the route; the route's own is (14, 16384, CHEB_STEPS) float64
+ZEXP_SHAPES = ((4, 16, 37, "float64"), (7, 128, 20_000, "float32"),
+               (14, 16384, 2048, "float64"))
 #: n13 output steps per tier (each step is one restarted Chebyshev sweep of
 #: about 3,600 terms at the production dt)
 N13_STEPS = 3
@@ -427,6 +462,210 @@ def check_ext_obs(shape, peaks, seed: int, reps: int = 10, plain_reps: int = 3) 
     }
 
 
+def zexp_bound(n: int, dim: int, T: int, itemsize: int, peaks) -> tuple[float, str]:
+    """Least time of z_expectations_f32 at one shape: both planes read once,
+    the sign table read once, the output written once, over the HBM rate;
+    (2n + 3) float32 operations per (d, t) (the square sum and n
+    multiply-adds) over the float32 rate without tensor cores."""
+    nbytes = 2.0 * dim * T * itemsize + 4.0 * n * dim + 4.0 * n * T
+    ops = (2.0 * n + 3.0) * dim * T
+    t_ops, t_bytes = ops / peaks[1] * 1e3, nbytes / peaks[3] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_zexp(re, im, signs, peaks) -> dict:
+    """Kernel vs plain version on the card for one block of states: errors,
+    CUDA-event timings of the kernel, the plain version and the library
+    yardstick (one float32 matmul on a precomputed |psi|^2, which leaves out
+    the square sum), and the bound."""
+    import torch
+
+    from quantumsimulations_tpu_torch.ops.zexp import z_expectations_f32, z_expectations_f32_plain
+
+    got = z_expectations_f32(re, im, signs)
+    want = z_expectations_f32_plain(re, im, signs)
+    s32 = signs.to(torch.float32)
+    p2 = (re * re + im * im).to(torch.float32)
+    lib = torch.matmul(s32, p2)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    abs_err = float((got - want).abs().max())
+    rel_err = abs_err / scale
+    n, (dim, T) = signs.shape[0], re.shape
+    bound_ms, bound_by = zexp_bound(n, dim, T, re.element_size(), peaks)
+    return {
+        "shape": [n, dim, T, str(re.dtype).replace("torch.", "")],
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "library_rel_err": float((lib - want).abs().max()) / scale,
+        "ms": cuda_ms(lambda: z_expectations_f32(re, im, signs)),
+        "plain_ms": cuda_ms(lambda: z_expectations_f32_plain(re, im, signs)),
+        "library_ms": cuda_ms(lambda: torch.matmul(s32, p2)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_zexp(shape, peaks, seed: int) -> dict:
+    """z_expectations_f32 vs its plain version at one (n, dim, T, dtype)
+    shape, on random planes."""
+    import torch
+
+    from quantumsimulations_tpu_torch.ops.zexp import z_sign_table
+
+    n, dim, T, dtype = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    re, im = (torch.randn(dim, T, generator=gen, device="cuda", dtype=getattr(torch, dtype))
+              for _ in range(2))
+    dims = (2,) * (n - 1) + (dim >> (n - 1),)
+    signs = torch.as_tensor(z_sign_table(dims), device="cuda")
+    r = time_zexp(re, im, signs, peaks)
+    if not r["max_rel_err"] <= KERNEL_REL_TOL:
+        raise AssertionError(f"z_expectations_f32 {shape}: rel err {r['max_rel_err']:.3e} > "
+                             f"{KERNEL_REL_TOL:g}")
+    return r
+
+
+def n12_krylov(n12: dict) -> dict:
+    """The n12 workload over its first N12_CHECK_STEPS output steps through
+    ``simulate_rare(solver_method="krylov")``, held against phase 11's f64
+    stepper rows and oracle."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.dynamics.krylov import (
+        KRYLOV_M,
+        KRYLOV_THETA,
+        spectral_norm_bound,
+        spectral_norm_estimate,
+    )
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+
+    T = N12_CHECK_STEPS
+    params = dataclasses.replace(n12_params(T), solver_method="krylov")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t, named = simulate_rare(params, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
+    if rows.shape != (7, T) or not np.isfinite(rows).all():
+        raise AssertionError(f"n12 krylov: rows not finite of shape (7, {T}): {rows.shape}")
+    if not np.allclose(np.diff(t), N12_DT, rtol=1e-9, atol=0.0):
+        raise AssertionError("n12 krylov: simulate_rare ran another time grid")
+    norm_dev = float(np.abs(rows[6] - 1.0).max())
+    if not norm_dev < KRYLOV_NORM_ATOL:
+        raise AssertionError(f"n12 krylov: max |norm - 1| = {norm_dev!r} >= {KRYLOV_NORM_ATOL:g}")
+    if abs(rows[2, 0] - (-6.0)) > 1e-12:
+        raise AssertionError(f"n12 krylov: Iz_sea[0] = {rows[2, 0]!r}, want -6")
+    vs_cheb = float(np.abs(rows - n12["rows_ref"]).max())
+    vs_oracle = float(np.abs(rows[:, 1] - n12["oracle_rows"]).max())
+    if not max(vs_cheb, vs_oracle) <= N12_ATOL:
+        raise AssertionError(f"n12 krylov vs cheb_step f64 {vs_cheb:.3e}, vs oracle at t=dt "
+                             f"{vs_oracle:.3e} (bound {N12_ATOL:g})")
+    # the route's substep count, from the same norm bound it takes
+    H = build_model(params).hamiltonian
+    nb = min(spectral_norm_bound(H), spectral_norm_estimate(H, device="cuda"))
+    n_sub = max(1, int(np.ceil(nb * N12_DT / KRYLOV_THETA)))
+    substeps = n_sub * (T - 1)  # no step after the last output row
+    return {"wall_s": wall, "launches": launches, "norm_bound": nb, "n_sub": n_sub,
+            "substeps": substeps, "s_per_substep": wall / substeps,
+            "applies_per_s": substeps * KRYLOV_M / wall, "norm_dev": norm_dev,
+            "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb, "vs_oracle": vs_oracle}
+
+
+def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
+    """The n13 workload over CHEB_STEPS output steps: one global Chebyshev
+    sweep assembled into the route's rows, z_expectations_f32 on its states,
+    and the public route through ``simulate_rare``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.chebyshev import (
+        chebyshev_coefficients,
+        chebyshev_states,
+        rows_from_states,
+    )
+    from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.dynamics.krylov import spectral_norm_bound
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.ops.zexp import z_expectations_f32, z_sign_table
+
+    T = CHEB_STEPS
+    params = n13_params(T)
+    model = build_model(params)
+    times = np.linspace(0.0, N13_DT * (T - 1), T)
+    lam = spectral_norm_bound(model.hamiltonian)
+    K = chebyshev_coefficients(lam, times).shape[1]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states = chebyshev_states(model.hamiltonian, model.psi0, times, device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    rows = rows_from_states(model.hamiltonian, model.psi0, states, model.dims,
+                            model.n_sea_effective, model.idx_rare, device="cuda")
+    if rows.shape != (8, T) or not np.isfinite(rows).all():
+        raise AssertionError(f"n13 chebyshev: rows not finite of shape (8, {T}): {rows.shape}")
+    norm_dev = float(np.abs(rows[6] - 1.0).max())
+    if not norm_dev < CHEB_NORM_ATOL:
+        raise AssertionError(f"n13 chebyshev: max |norm - 1| = {norm_dev!r} >= {CHEB_NORM_ATOL:g}")
+    if abs(rows[2, 0] - (-6.5)) > 1e-12:
+        raise AssertionError(f"n13 chebyshev: Iz_sea[0] = {rows[2, 0]!r}, want -6.5")
+    n_ref = f64_rows.shape[1]
+    vs_f64 = float(np.abs(rows[:7, :n_ref] - f64_rows[:7]).max())
+    vs_oracle = float(np.abs(rows[:7, 1] - oracle_rows).max())
+    if not max(vs_f64, vs_oracle) <= N13_ORACLE_ATOL:
+        raise AssertionError(f"n13 chebyshev vs cheb_step f64 {vs_f64:.3e}, vs oracle at t=dt "
+                             f"{vs_oracle:.3e} (bound {N13_ORACLE_ATOL:g})")
+
+    # kernel 4 on the route's states, on the card
+    S = torch.as_tensor(states, device="cuda").T
+    re, im = S.real.contiguous(), S.imag.contiguous()
+    signs = torch.as_tensor(z_sign_table(model.dims), device="cuda")
+    z = z_expectations_f32(re, im, signs)
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    if launches["z_expectations_f32"] <= 0:
+        raise AssertionError(f"n13 chebyshev: z_expectations_f32 was not launched: {launches}")
+    z = z.double().cpu().numpy()
+    vs_rows = max(float(np.abs(z[: model.n_sea_effective].sum(axis=0) - rows[2]).max()),
+                  float(np.abs(z[model.idx_rare] - rows[3]).max()))
+    if not vs_rows <= ZEXP_ROUTE_ATOL:
+        raise AssertionError(f"z_expectations_f32 vs the route's float64 Iz rows: {vs_rows:.3e} > "
+                             f"{ZEXP_ROUTE_ATOL:g}")
+    at_path = time_zexp(re, im, signs, peaks)
+    if not at_path["max_rel_err"] <= KERNEL_REL_TOL:
+        raise AssertionError(f"z_expectations_f32 on the route's states: rel err "
+                             f"{at_path['max_rel_err']:.3e} > {KERNEL_REL_TOL:g}")
+
+    # the public route at the same size
+    t0 = time.perf_counter()
+    t_sim, named = simulate_rare(dataclasses.replace(params, solver_method="chebyshev"),
+                                 device="cuda")
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    sim_rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
+    if not np.array_equal(t_sim, times):
+        raise AssertionError("n13 chebyshev: simulate_rare ran another time grid")
+    sim_vs = float(np.abs(sim_rows - rows[:7]).max())
+    if not sim_vs <= 1e-13:
+        raise AssertionError(f"n13 chebyshev: simulate_rare vs the sweep's rows {sim_vs:.3e}")
+    return {"lambda": lam, "K": K, "sweep_s": sweep_s, "s_per_apply": sweep_s / K,
+            "applies_per_s": K / sweep_s, "simulate_rare_wall_s": sim_wall,
+            "launches": launches, "norm_dev": norm_dev, "iz0": float(rows[2, 0]),
+            "vs_cheb_step": vs_f64, "vs_oracle": vs_oracle, "zexp_vs_rows": vs_rows,
+            "simulate_rare_vs_sweep": sim_vs, "zexp": at_path}
+
+
 def n13_tier(model, arith: str, lam: float, T: int) -> dict:
     """One timed run of chebyshev_step_traces at n13; returns rows, the
     stage split and the launch counts of that run."""
@@ -536,6 +775,7 @@ def n12_ext(oracle) -> dict:
         "limb_pairs": pairs, "guard": EXT_GUARD,
         "norm_dev": norm_dev, "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb,
         "vs_oracle": vs_oracle, "oracle_s": o_sec,
+        "rows_ref": ref[:7], "oracle_rows": o_rows,
     }
 
 
@@ -671,7 +911,7 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    say("[1/11] card (nvidia-smi name, power.limit):")
+    say("[1/14] card (nvidia-smi name, power.limit):")
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
@@ -682,21 +922,21 @@ def main() -> int:
     built = build_all(extra_flags=("-Xptxas", "-v"))
     for kname, (out, sec) in built.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        say(f"[2/11] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
+        say(f"[2/14] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
     say(f"      all {len(built)} builds (in parallel): {time.perf_counter() - t0:.2f} s")
 
     main_shape = (39, 128, 128, 1680)
     at_main = check_cmatmul(main_shape, peaks, seed=1)
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
-        say(f"[3/11] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
+        say(f"[3/14] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
             f"(bound {KERNEL_REL_TOL:g}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     limb = {}
     for i, lname in enumerate(LIMB_SHAPES):
         r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
-        say(f"[4/11] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
+        say(f"[4/14] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
             f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, f64 matmul of the same "
             f"shape {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -716,11 +956,19 @@ def main() -> int:
         big = shape[2] > 4096
         r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, reps=3 if big else 10,
                                        plain_reps=1 if big else 3)
-        say(f"[5/11] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit, kernel "
+        say(f"[5/14] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['gop']:.1f} G int32 operations, the JAX cost estimate "
             f"counts {r['cost_estimate_gop']:.1f} G)")
     at_path = obs[EXT_OBS_SHAPES[-1]]
+
+    zexp = {}
+    for i, zshape in enumerate(ZEXP_SHAPES):
+        r = zexp[zshape] = check_zexp(zshape, peaks, seed=30 + i)
+        say(f"[6/14] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
+            f"{KERNEL_REL_TOL:g}; float32 matmul {r['library_rel_err']:.3e}), kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
@@ -739,7 +987,7 @@ def main() -> int:
         oracle_err = oracle_check(dir64, tr64)
         if not oracle_err <= ORACLE_ATOL:
             raise AssertionError(f"eig: Iz_sea vs host oracle {oracle_err:.3e} > {ORACLE_ATOL:g}")
-        say(f"[6/11] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
+        say(f"[7/14] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
@@ -757,7 +1005,7 @@ def main() -> int:
         )
         if not diff <= EIG32_ATOL:
             raise AssertionError(f"eig32 vs eig: {diff:.3e} > {EIG32_ATOL:g}")
-        say(f"[7/11] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
+        say(f"[8/14] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
             f"max |eig32 - eig| {diff:.2e} "
             f"(bound {EIG32_ATOL:g}); launches {launches_eig32}")
 
@@ -798,7 +1046,7 @@ def main() -> int:
         sim_vs_f64 = float(np.abs(rows_sim - f64["rows"][:7]).max())
         if not sim_vs_f64 <= 1e-12:
             raise AssertionError(f"n13: simulate_rare vs chebyshev_step_traces f64 {sim_vs_f64:.3e}")
-        say(f"[8/11] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
+        say(f"[9/14] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
             f"{sim_wall:.2f} s wall, launches {launches_sim}; timed f64 run "
             f"{f64['wall_s']:.2f} s {f64['stages_s']}, {T / f64['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / f64['stages_s']['stepping']:.1f} applies/s; host set-up {setup}; "
@@ -821,7 +1069,7 @@ def main() -> int:
                  for tier, r in (("f64", f64), ("extp", extp))}
         if not max(o_err.values()) <= N13_ORACLE_ATOL:
             raise AssertionError(f"n13 vs expm_multiply oracle at t=dt: {o_err} > {N13_ORACLE_ATOL:g}")
-        say(f"[9/11] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
+        say(f"[10/14] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
             f"{T / extp['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / extp['stages_s']['stepping']:.1f} applies/s, "
             f"{n_launch} limb_matmul_canon launches ({6 * (K - 1)} per step); limb split of the "
@@ -833,7 +1081,7 @@ def main() -> int:
 
         n12 = n12_ext(oracles[12])
         st = n12["stages_s"]
-        say(f"[10/11] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
+        say(f"[11/14] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
             f"(auto -> ext) {n12['wall_s']:.2f} s wall, stages {st}; n_sq {n12['n_sq']}: "
             f"{n12['products']} (8192)^3 ext products, {n12['s_per_product']:.3f} s each "
             f"(int8 tensor-core bound {n12['product_bound_s']:.3f} s); launches "
@@ -841,6 +1089,34 @@ def main() -> int:
             f"vs cheb_step f64 over {N12_CHECK_STEPS} steps {n12['vs_cheb_step']:.2e}, vs "
             f"expm_multiply oracle at t=dt {n12['vs_oracle']:.2e} (bound {N12_ATOL:g}; oracle "
             f"{n12['oracle_s']:.1f} s on the host)")
+
+        kry = n12_krylov(n12)
+        say(f"[12/14] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
+            f"simulate_rare {kry['wall_s']:.2f} s wall, n_sub {kry['n_sub']} per output step "
+            f"(norm bound {kry['norm_bound']:.6e} rad/s), {kry['substeps']} substeps, "
+            f"{kry['s_per_substep']:.5f} s per substep, {kry['applies_per_s']:.1f} applies/s; "
+            f"launches {kry['launches']}; max|norm-1| {kry['norm_dev']!r} (bound "
+            f"{KRYLOV_NORM_ATOL:g}); Iz_sea[0] {kry['iz0']!r}; vs cheb_step f64 "
+            f"{kry['vs_cheb_step']:.2e}, vs expm_multiply oracle at t=dt {kry['vs_oracle']:.2e} "
+            f"(bound {N12_ATOL:g})")
+        for key in ("rows_ref", "oracle_rows"):
+            n12.pop(key)
+
+        cheb = n13_chebyshev(f64["rows"], o_rows, peaks)
+        zp = cheb["zexp"]
+        say(f"[13/14] n13 chebyshev (dim 16384, {CHEB_STEPS} output steps, t_final "
+            f"{N13_DT * (CHEB_STEPS - 1):.6f} s): lambda {cheb['lambda']:.6e} rad/s, K "
+            f"{cheb['K']}, sweep {cheb['sweep_s']:.2f} s, {cheb['s_per_apply'] * 1e3:.4f} ms per "
+            f"apply, {cheb['applies_per_s']:.1f} applies/s; simulate_rare (chebyshev) "
+            f"{cheb['simulate_rare_wall_s']:.2f} s, vs the sweep's rows "
+            f"{cheb['simulate_rare_vs_sweep']:.1e}; max|norm-1| {cheb['norm_dev']!r} (bound "
+            f"{CHEB_NORM_ATOL:g}); Iz_sea[0] {cheb['iz0']!r}; vs cheb_step f64 "
+            f"{cheb['vs_cheb_step']:.2e}, vs oracle at t=dt {cheb['vs_oracle']:.2e} (bound "
+            f"{N13_ORACLE_ATOL:g}); launches {cheb['launches']}; z_expectations_f32 on the "
+            f"route's states {tuple(zp['shape'])}: vs the float64 Iz rows "
+            f"{cheb['zexp_vs_rows']:.2e} (bound {ZEXP_ROUTE_ATOL:g}), rel err vs plain "
+            f"{zp['max_rel_err']:.3e}, kernel {zp['ms']:.4f} ms, plain {zp['plain_ms']:.4f} ms, "
+            f"library {zp['library_ms']:.4f} ms, bound {zp['bound_ms']:.5f} ms ({zp['bound_by']})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for proc, _ in oracles.values():
@@ -908,8 +1184,27 @@ def main() -> int:
             "shapes": {str(k): v for k, v in obs.items()},
             "n12": n12,
         },
+        {
+            "name": "z_expectations_f32",
+            "route": "cuda",
+            "source": "quantumsimulations_tpu_torch/csrc/z_expectations_f32.cu",
+            "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:128",
+            "launches": cheb["launches"]["z_expectations_f32"],
+            "max_abs_err": max([zp["max_abs_err"]] + [r["max_abs_err"] for r in zexp.values()]),
+            "ms": zp["ms"],
+            "kernel_ms": zp["ms"],
+            "plain_ms": zp["plain_ms"],
+            "bound_ms": zp["bound_ms"],
+            "bound_by": zp["bound_by"],
+            "library_ms": zp["library_ms"],
+            "library_call": "torch.matmul of the float32 signs and a precomputed float32 "
+                            "|psi|^2: leaves out the square sum",
+            "shapes": {str(k): v for k, v in zexp.items()},
+            "n13_chebyshev": {k: v for k, v in cheb.items() if k != "zexp"},
+            "n12_krylov": kry,
+        },
     ]
-    say(f"[11/11] total {time.perf_counter() - t_start:.1f} s; kernels:")
+    say(f"[14/14] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

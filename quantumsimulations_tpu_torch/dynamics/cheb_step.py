@@ -51,7 +51,7 @@ from ..ops.split_apply import make_split_apply
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
 from .chebyshev import chebyshev_coefficients
-from .observables import site_xyz_expectations, state_norms
+from .observables import assembled_rows
 
 _LIMB_TIER = "arithmetic 'limb' (ops/split_apply_limb.py) is not ported yet: ROADMAP.md queue 1 item 3"
 
@@ -189,13 +189,8 @@ def _rows_of_stack(states: torch.Tensor, sea_mask: torch.Tensor, e0: float,
     ns = states.shape[0]
     flat = states.reshape(ns, 2, -1)
     S = torch.complex(flat[:, 0], flat[:, 1]).T  # (dim, n_steps)
-    xyz = site_xyz_expectations(S, dims)
-    norms = state_norms(S)
-    sea = torch.einsum("j,jot->ot", sea_mask, xyz)
-    rare = xyz[idx_rare]
-    rows = torch.stack(
-        [sea[0], sea[1], sea[2], rare[2], rare[0], rare[1], norms, torch.full_like(norms, e0)]
-    )  # (8, n_steps)
+    rows = assembled_rows(S, dims, sea_mask, idx_rare)
+    rows = torch.cat([rows, torch.full_like(rows[:1], e0)])  # (8, n_steps)
     return rows.T.reshape(-1)
 
 

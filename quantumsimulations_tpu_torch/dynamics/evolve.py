@@ -12,6 +12,9 @@ Solver dispatch (params.solver_method) in this port:
               (expm_propagator.expm_traces_assembled_ext).
   * "cheb_step" — the split-matmul Chebyshev stepper (cheb_step.py), at its
               default arithmetic tier ("f64" on cuda and cpu).
+  * "krylov" — matrix-free Lanczos stepping (krylov.py).
+  * "chebyshev" — one matrix-free global Chebyshev basis sweep for all
+              output times (chebyshev.py).
   * "auto"  — as in the JAX package: "eig" up to dim 2048, "ext" up to dim
               8192, "cheb_step" above.
 
@@ -38,11 +41,12 @@ _EXT_MAX_DIM = 8192  # the JAX package's dense ext limb chain reaches this far
 
 #: where each solver of the JAX package is scheduled to be ported
 _NOT_PORTED = {
-    "expm": "ROADMAP.md queue 1 item 3 (other solvers)",
-    "krylov": "ROADMAP.md queue 1 item 3 (other solvers)",
-    "chebyshev": "ROADMAP.md queue 1 item 3 (other solvers)",
-    "dopri": "ROADMAP.md queue 1 item 3 (other solvers)",
+    "expm": "ROADMAP.md queue 1 item 3 (other solvers: expm and Ozaki)",
+    "dopri": "ROADMAP.md queue 1 item 3 (other solvers: dopri)",
 }
+
+#: the solvers this port runs
+PORTED = ("eig", "eig32", "ext", "cheb_step", "krylov", "chebyshev")
 
 
 def _auto_method(dim: int) -> str:
@@ -59,7 +63,7 @@ def check_method(method: str) -> None:
         raise NotImplementedError(
             f"solver_method {method!r} is not ported to PyTorch yet: {_NOT_PORTED[method]}"
         )
-    if method not in ("eig", "eig32", "ext", "cheb_step"):
+    if method not in PORTED:
         raise ValueError(f"unknown solver_method: {method!r}")
 
 
@@ -90,6 +94,26 @@ def simulate_rare(
         rows = chebyshev_step_traces(
             model.hamiltonian, model.psi0, t, dims,
             model.n_sea_effective, model.idx_rare, device=device, timer=timer,
+        )
+        named = traces_dict(rows)
+        named.pop("energy", None)
+        return t, named
+    if method == "krylov":
+        from .krylov import krylov_traces_assembled
+
+        rows = krylov_traces_assembled(
+            model.hamiltonian, model.psi0, t, dims,
+            model.n_sea_effective, model.idx_rare, device=device,
+        )
+        named = traces_dict(rows)
+        named.pop("energy", None)
+        return t, named
+    if method == "chebyshev":
+        from .chebyshev import chebyshev_traces_assembled
+
+        rows = chebyshev_traces_assembled(
+            model.hamiltonian, model.psi0, t, dims,
+            model.n_sea_effective, model.idx_rare, device=device,
         )
         named = traces_dict(rows)
         named.pop("energy", None)

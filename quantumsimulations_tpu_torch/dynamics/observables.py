@@ -76,6 +76,18 @@ def state_norms(states: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(states, dim=-2)
 
 
+def assembled_rows(states: torch.Tensor, dims: tuple[int, ...], sea_mask: torch.Tensor,
+                   idx_rare: int) -> torch.Tensor:
+    """(dim, T) complex states -> the first seven TRACE_ROWS (7, T) on the
+    states' device: Ix/Iy/Iz_sea (``sea_mask`` weights the sites), Iz/Ix/Iy_R
+    and the norm."""
+    xyz = site_xyz_expectations(states, dims)
+    norms = state_norms(states)
+    sea = torch.einsum("j,jot->ot", sea_mask, xyz)
+    rare = xyz[idx_rare]
+    return torch.stack([sea[0], sea[1], sea[2], rare[2], rare[0], rare[1], norms])
+
+
 def assemble_traces(
     site_xyz: np.ndarray,
     norms: np.ndarray,

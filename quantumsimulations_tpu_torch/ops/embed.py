@@ -1,24 +1,28 @@
 """Operator IR: sums of tensor-product terms over a mixed-dimension spin chain.
 
 Operators are kept as a light IR — a sum of :class:`ProductTerm`s, each a
-scalar coefficient times single-site operator factors.  Everything here runs
-on the host in numpy:
+scalar coefficient times single-site operator factors.  The IR supports:
 
-  * ``to_dense()``        — the dense complex128 matrix, which the dense
-                            eigendecomposition propagator consumes;
-  * ``to_coo()``          — the aggregated sparse triplet, for the spectral
-                            bound of the Chebyshev stepper;
+  * ``to_dense()``        — the dense complex128 matrix (host numpy), which
+                            the dense eigendecomposition propagator consumes;
+  * ``to_coo()``          — the aggregated sparse triplet (host numpy), for
+                            the spectral bound of the Chebyshev stepper;
   * ``diagonal_part()`` / ``offdiagonal_terms()`` — the decomposition the
                             split-matmul apply (ops/split_apply.py) is built
-                            from.
+                            from;
+  * ``apply(psi)``        — the matrix-free H @ psi on a complex torch
+                            statevector, term by term (any local dims), and
+                            :func:`make_qubit_flip_apply`, the same product
+                            for all-spin-1/2 chains in a fixed number of
+                            launches (the Krylov and global Chebyshev
+                            solvers' apply).
 
 Sites are indexed 0..n-1 with per-site local dimension ``dims[k]`` (the rare
 spin, when present, is the last index, matching the reference convention at
 dipolar_ensemble_with_rare.py:28-34).
 
-Not yet ported from ``quantumsimulations_tpu/ops/embed.py``: the matrix-free
-``apply`` and ``to_dense_device``, which only the Krylov and global
-Chebyshev solvers use (ROADMAP.md queue 1 item 3).
+Not ported from ``quantumsimulations_tpu/ops/embed.py``: ``to_dense_device``
+(no caller of the port needs the dense matrix on the card).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from dataclasses import dataclass
 from itertools import product
 
 import numpy as np
+import torch
 
+from ..utils.device import resolve_device
 from .spin import spin_matrix
 
 
@@ -164,3 +170,113 @@ class OperatorSum:
 
     def offdiagonal_terms(self) -> tuple[ProductTerm, ...]:
         return tuple(t for t in self.terms if not self._is_diagonal(t))
+
+    # -- matrix-free apply ------------------------------------------------------
+    def apply(self, psi: torch.Tensor, diag: torch.Tensor | None = None) -> torch.Tensor:
+        """H @ psi for a flat complex statevector (dim,), without
+        materializing H.
+
+        ``diag`` may be passed in as a precomputed real tensor on psi's
+        device (from :meth:`diagonal_part`); otherwise it is computed on the
+        host here.  The off-diagonal terms are applied one by one as per-site
+        tensor contractions, in the JAX package's order."""
+        if diag is None:
+            diag = torch.as_tensor(self.diagonal_part(), device=psi.device)
+        out = psi * diag
+        psi_t = psi.reshape(self.dims)
+        for term in self.offdiagonal_terms():
+            out = out + _apply_product_term(psi_t, self.dims, term).reshape(psi.shape)
+        return out
+
+
+def _apply_product_term(psi_t: torch.Tensor, dims: tuple[int, ...], term: ProductTerm) -> torch.Tensor:
+    """Apply coeff * prod(op_site) to a tensor-shaped statevector: each
+    factor contracts its site's axis, out'[.., a, ..] = sum_b op[a, b] out[.., b, ..]."""
+    out = psi_t
+    for site, which in term.factors:
+        op = torch.as_tensor(local_op(dims[site], which), dtype=psi_t.dtype, device=psi_t.device)
+        out = torch.movedim(torch.tensordot(op, out, dims=([1], [site])), 0, site)
+    return out * term.coeff
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free apply for all-spin-1/2 chains in a fixed number of launches.
+#
+# For qubit chains every off-diagonal product term of the dipolar model
+# family is a bit-flip permutation with a per-level coefficient:
+#
+#   * c_x X_j + c_y Y_j      ->  flip bit j, coefficient (c_x -+ i c_y) by level
+#   * c_xx X_jX_k + c_yy Y_jY_k -> flip bits j,k, REAL coefficient
+#         c_xx + c_yy * (-1 if a_j == a_k else +1) by level pair
+#
+# so (H psi)[d] = diag[d] psi[d] + sum_t coef_t[d] psi[d XOR mask_t].  The
+# JAX package applies the terms one by one (reshape, reverse, multiply, add),
+# which XLA fuses into one program; eagerly that would be ~6 launches per
+# term (92 terms, ~550 launches per apply at n_sea = 13).  Here an index
+# table idx[t, d] = d XOR mask_t and a coefficient table coef[t, d] (both
+# (n_terms, dim), built once on the device) turn the apply into one gather,
+# one multiply, one column sum and one multiply-add, whatever the number of
+# terms.  The terms are summed in another order than the JAX package's, so
+# the two agree to float64 rounding, not bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def make_qubit_flip_apply(H: OperatorSum, device: str | torch.device = "cuda"):
+    """Build ``apply(psi, diag) -> H @ psi`` for an all-spin-1/2 OperatorSum
+    whose off-diagonal terms are single-site x/y or two-site xx/yy products
+    (the dipolar model family), with its tables on ``device``.  ``psi`` is a
+    complex128 (dim,) tensor, ``diag`` the real diagonal (dim,).  Returns
+    None if the operator has terms outside that family (callers fall back
+    to :meth:`OperatorSum.apply`)."""
+    dims = H.dims
+    if any(d != 2 for d in dims):
+        return None
+    n = len(dims)
+    singles: dict[int, list[float]] = {}
+    pairs: dict[tuple[int, int], list[float]] = {}
+    for term in H.offdiagonal_terms():
+        sites = [s for s, _ in term.factors]
+        ops = [w for _, w in term.factors]
+        if len(sites) == 1 and ops[0] in ("x", "y"):
+            acc = singles.setdefault(sites[0], [0.0, 0.0])
+            acc[0 if ops[0] == "x" else 1] += term.coeff
+        elif len(sites) == 2 and ops in (["x", "x"], ["y", "y"]):
+            acc = pairs.setdefault((sites[0], sites[1]), [0.0, 0.0])
+            acc[0 if ops[0] == "x" else 1] += term.coeff
+        else:
+            return None
+
+    dev = resolve_device(device)
+    dim = 1 << n
+    index = np.arange(dim, dtype=np.int64)
+
+    def level(site: int) -> np.ndarray:  # site 0 is the most significant bit
+        return (index >> (n - 1 - site)) & 1
+
+    masks, coefs = [], []
+    # Spin operators carry the 1/2: I_{x,y} = sigma_{x,y}/2, so singles
+    # scale by 1/2 and pairs by 1/4.  Coefficients are indexed by the
+    # OUTPUT index's levels, as the JAX package's broadcast constants are.
+    for site, (cx2, cy2) in singles.items():
+        cx, cy = 0.5 * cx2, 0.5 * cy2
+        sgn = 1.0 - 2.0 * level(site)  # +1 on level 0, -1 on level 1
+        masks.append(1 << (n - 1 - site))
+        coefs.append(cx - 1j * (cy * sgn))
+    for (j, k), (cxx, cyy) in pairs.items():
+        C = 0.25 * np.asarray([[cxx - cyy, cxx + cyy], [cxx + cyy, cxx - cyy]], dtype=np.float64)
+        if not np.any(C):
+            continue
+        masks.append((1 << (n - 1 - j)) | (1 << (n - 1 - k)))
+        coefs.append(C[level(j), level(k)].astype(np.complex128))
+    if not masks:
+        return lambda psi, diag: psi * diag
+    idx = torch.as_tensor(
+        (index[None, :] ^ np.asarray(masks, dtype=np.int64)[:, None]).reshape(-1), device=dev
+    )
+    coef = torch.as_tensor(np.stack(coefs), dtype=torch.complex128, device=dev)
+
+    def apply(psi: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+        flipped = torch.index_select(psi, 0, idx).view(coef.shape)
+        return torch.addcmul(flipped.mul_(coef).sum(dim=0), psi, diag)
+
+    return apply

@@ -41,6 +41,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .limb_kernels import carry_digits
 
 EXT_LIMBS = 15  # 15 * 5 = 75 bits below the grid top
@@ -413,10 +414,12 @@ def _ext_limbs_from_f32_planes(planes, L: int) -> torch.Tensor:
     return _ext_carry_i8_digits(digits)
 
 
-def ext_split_upload(x: np.ndarray, L: int = EXT_LIMBS, device="cpu") -> torch.Tensor:
-    """Host float64 array -> (L, ...) int8 canonical ext limbs on ``device``,
-    through the float32 triple split (:func:`_ext_limbs_from_f32_planes`).
-    The JAX package's split below its chunk dim, and always for psi0."""
+def ext_split_upload(x: np.ndarray, L: int = EXT_LIMBS, device="cuda") -> torch.Tensor:
+    """Host float64 array -> (L, ...) int8 canonical ext limbs on ``device``
+    (default "cuda", raising without CUDA; pass "cpu" for the host), through
+    the float32 triple split (:func:`_ext_limbs_from_f32_planes`).  The JAX
+    package's split below its chunk dim, and always for psi0."""
+    device = resolve_device(device)
     maxabs = float(np.abs(x).max()) if x.size else 0.0
     assert maxabs < 2.0**EXT_E, (
         f"ext_split_upload domain violated: max|x| = {maxabs} >= 2^{EXT_E}"
@@ -433,12 +436,14 @@ def ext_split_upload_coo_pair_host(
     v_b: np.ndarray,
     dim: int,
     L: int = EXT_LIMBS,
-    device="cpu",
+    device="cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """COO pair -> two dense (L, dim, dim) limb stacks: the host canonical
     split of the value vectors (:func:`ext_split_host`) scattered into
-    zeros on ``device``.  The JAX package's split at and above its chunk
-    dim.  Indices must be duplicate-free (``OperatorSum.to_coo`` aggregates)."""
+    zeros on ``device`` (default "cuda", raising without CUDA).  The JAX
+    package's split at and above its chunk dim.  Indices must be
+    duplicate-free (``OperatorSum.to_coo`` aggregates)."""
+    device = resolve_device(device)
     assert rows.shape == cols.shape == v_a.shape == v_b.shape
     assert dim * dim < 2**31
     lr = torch.from_numpy(ext_split_host(np.ascontiguousarray(v_a), L)).to(device)

@@ -16,11 +16,11 @@ points whose metrics.json already exists.
 Differences from the JAX package's runner:
   * ``device=`` picks the torch device (default "cuda"; never a silent CPU
     fallback).
-  * Of the stepping solvers the JAX runner solves one by one, "ext" is
-    ported (:func:`_solve_one_stepping`, with mid-solve snapshots under
-    ``<base_dir>/.solver_ckpt/simNNNN``, cleared as each solve succeeds);
-    expm, krylov, chebyshev and dopri raise NotImplementedError before
-    anything is written.  As in the JAX package, "cheb_step" (like "auto")
+  * Of the stepping solvers the JAX runner solves one by one, "ext" (with
+    mid-solve snapshots under ``<base_dir>/.solver_ckpt/simNNNN``, cleared
+    as each solve succeeds), "krylov" and "chebyshev" are ported
+    (:func:`_solve_one_stepping`); expm and dopri raise NotImplementedError
+    before anything is written.  As in the JAX package, "cheb_step" (like "auto")
     is solved on the batched eigendecomposition route.  ``mesh`` (the
     data-parallel sharded batch) raises too (ROADMAP.md queue 1 item 5).
   * matplotlib is imported only when ``make_plots`` is on, so a sweep
@@ -85,17 +85,25 @@ def _solve_one_stepping(
 ) -> dict[str, np.ndarray]:
     """One simulation through a stepping backend, as a named trace dict.
 
-    ``ckpt_dir`` enables mid-solve advance snapshots, so a killed sweep
-    resumes inside a long solve, not only at point granularity
+    ``ckpt_dir`` ("ext" only) enables mid-solve advance snapshots, so a
+    killed sweep resumes inside a long solve, not only at point granularity
     (dynamics/checkpoint.py)."""
-    if method != "ext":
-        raise ValueError(f"{method!r} is not a stepping solver")
-    from ..dynamics.expm_propagator import expm_traces_assembled_ext
+    args = (model.hamiltonian, model.psi0, times, model.dims,
+            model.n_sea_effective, model.idx_rare)
+    if method == "ext":
+        from ..dynamics.expm_propagator import expm_traces_assembled_ext
 
-    rows = expm_traces_assembled_ext(
-        model.hamiltonian, model.psi0, times, model.dims,
-        model.n_sea_effective, model.idx_rare, ckpt_dir=ckpt_dir, device=device,
-    )
+        rows = expm_traces_assembled_ext(*args, ckpt_dir=ckpt_dir, device=device)
+    elif method == "krylov":
+        from ..dynamics.krylov import krylov_traces_assembled
+
+        rows = krylov_traces_assembled(*args, device=device)
+    elif method == "chebyshev":
+        from ..dynamics.chebyshev import chebyshev_traces_assembled
+
+        rows = chebyshev_traces_assembled(*args, device=device)
+    else:
+        raise ValueError(f"{method!r} is not a stepping solver")
     return traces_dict(rows)
 
 
@@ -106,12 +114,12 @@ def _solve_group(
 
     Returns one reference-named trace dict per model; the observables are
     assembled on the device and only the (B, 8, T) rows come back.  The
-    stepping solver "ext" solves model by model instead (``ckpt_dirs``: one
+    stepping solvers solve model by model instead (``ckpt_dirs``: one
     snapshot directory per model, or None).
     """
     method = "eig" if solver_method == "auto" else solver_method
     check_method(method)
-    if method == "ext":
+    if method in ("ext", "krylov", "chebyshev"):
         ckpt_dirs = ckpt_dirs or [None] * len(models)
         return [_solve_one_stepping(m, times, method, ckpt_dir=ck, device=device)
                 for m, ck in zip(models, ckpt_dirs)]

@@ -61,3 +61,19 @@ def production_params_kwargs(n_sea: int, **overrides) -> dict:
     )
     kw.update(overrides)
     return kw
+
+
+def stepper_kwargs(**kw):
+    """tests/test_steppers.py:24-50's parameters (n_sea = 3, 1 kHz sea
+    detuning, 51 steps over 0.5 ms)."""
+    gamma_sea, gamma_rare, B0, f1A = 8.1812e7, 6.976e7, 3.0, 50e3
+    base = dict(
+        n_sea=3, gamma_sea=gamma_sea, gamma_rare=gamma_rare, B0_sea=B0, B0_rare=B0,
+        B1_sea=2 * np.pi * f1A / gamma_sea, B1_rare=2 * np.pi * 70710.678 / gamma_rare,
+        omega_rf_sea=gamma_sea * B0 - 2 * np.pi * 1000.0, omega_rf_rare=gamma_rare * B0,
+        phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+        shell_scale=0.282393e-9, t_final=5.0e-4, steps=51, drive_sea=True, drive_rare=True,
+        is_spin_three_half=False, is_center_rare=True,
+    )
+    base.update(kw)
+    return base

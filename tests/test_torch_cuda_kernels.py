@@ -15,7 +15,11 @@ are exact in any order); the extp Chebyshev stepper against the f64 one,
 ext_obs_diagonals_int8 against its plain version and the ext limb product
 (int8 GEMMs through cuBLASLt) against the CPU, equal bit for bit; the ext
 route's rows on the card against the CPU, 1e-13 (equal limbs, the float64
-observable combine summed in another order).
+observable combine summed in another order); z_expectations_f32 against its
+plain version, 1e-5 of the output's largest magnitude (the kernel's float32
+sums against the plain version's float64 sum of the same float32 products); the matrix-free krylov and chebyshev routes on the card
+against the CPU, 1e-12 (the same float64 operations, reduced in another
+order).
 """
 
 import numpy as np
@@ -23,8 +27,10 @@ import pytest
 import torch
 
 from quantumsimulations_tpu_torch.dynamics import cheb_step as tcs
+from quantumsimulations_tpu_torch.dynamics import chebyshev as tcheb
 from quantumsimulations_tpu_torch.dynamics import eig_propagator as teig
 from quantumsimulations_tpu_torch.dynamics import expm_propagator as tep
+from quantumsimulations_tpu_torch.dynamics import krylov as tkry
 from quantumsimulations_tpu_torch.kernels import launch_counts
 from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
@@ -32,6 +38,7 @@ from quantumsimulations_tpu_torch.ops import cmatmul as cm
 from quantumsimulations_tpu_torch.ops import ext_obs as eo
 from quantumsimulations_tpu_torch.ops import extprec as ep
 from quantumsimulations_tpu_torch.ops import limb_kernels as lk
+from quantumsimulations_tpu_torch.ops import zexp
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -266,4 +273,59 @@ def test_ext_route_on_card_equals_cpu(cuda_device):
     assert launch_counts["ext_obs_diagonals_int8"] > before
     cpu = tep.expm_traces_assembled_ext(*args, block=128, device="cpu")
     assert np.abs(card - cpu).max() <= 1e-13
+    assert np.abs(card[6] - 1.0).max() < 1e-12
+
+
+@pytest.mark.parametrize(
+    "n,dim,T,dtype",
+    [(4, 16, 37, torch.float64), (7, 128, 2000, torch.float32), (14, 16384, 21, torch.float64),
+     (16, 65536, 64, torch.float32)],
+)
+def test_zexp_kernel_matches_plain(cuda_device, n, dim, T, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * dim + T)
+    re, im = (torch.randn(dim, T, generator=gen, device=cuda_device, dtype=dtype)
+              for _ in range(2))
+    dims = (2,) * (n - 1) + (dim >> (n - 1),)
+    signs = torch.as_tensor(zexp.z_sign_table(dims), device=cuda_device)
+    before = launch_counts["z_expectations_f32"]
+    got = zexp.z_expectations_f32(re, im, signs)
+    torch.cuda.synchronize()
+    assert launch_counts["z_expectations_f32"] == before + 1
+    want = zexp.z_expectations_f32_plain(re, im, signs)
+    assert got.dtype == torch.float32 and got.shape == (n, T)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_zexp_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(zexp, "z_expectations_f32_plain", refuse)
+    x = torch.ones((8, 3), dtype=torch.float64, device=cuda_device)
+    signs = torch.as_tensor(zexp.z_sign_table((2, 2, 2)), device=cuda_device)
+    assert zexp.z_expectations_f32(x, x, signs).is_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        zexp.z_expectations_f32(x.T.contiguous().T, x, signs)
+    with pytest.raises(ValueError, match="sites"):
+        big = torch.ones((17, 8), dtype=torch.float64, device=cuda_device)
+        zexp.z_expectations_f32(x, x, big)
+
+
+@pytest.mark.parametrize("route", ["krylov", "chebyshev"])
+def test_matrix_free_routes_on_card_equal_cpu(cuda_device, route):
+    kw = dict(
+        n_sea=4, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
+        B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
+        omega_rf_sea=8.1812e7 * 3.0 - 2 * np.pi * 900.0, omega_rf_rare=6.976e7 * 3.0,
+        phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+        shell_scale=0.282393e-9, drive_sea=True, drive_rare=True, is_spin_three_half=False,
+    )
+    m = build_model(DipolarRareParams(**kw))
+    t = np.linspace(0.0, 4e-4, 41)
+    args = (m.hamiltonian, m.psi0, t, m.dims, m.n_sea_effective, m.idx_rare)
+    fn = tkry.krylov_traces_assembled if route == "krylov" else tcheb.chebyshev_traces_assembled
+    card = fn(*args, device=cuda_device)
+    cpu = fn(*args, device="cpu")
+    assert np.abs(card[:7] - cpu[:7]).max() <= 1e-12
+    assert abs(card[7, 0] - cpu[7, 0]) <= 1e-12 * abs(cpu[7, 0])
     assert np.abs(card[6] - 1.0).max() < 1e-12

@@ -216,7 +216,7 @@ def test_eig_traces_spin32_match_reference(times_400):
     assert np.allclose(got[:, 3, 0], 1.5, atol=1e-14)  # Iz_R[0] of a spin-3/2 rare
 
 
-@pytest.mark.parametrize("method", ["auto", "eig", "eig32"])
+@pytest.mark.parametrize("method", ["auto", "eig", "eig32", "krylov", "chebyshev"])
 def test_simulate_rare_matches_reference(method):
     kw = production_params_kwargs(3, t_final=2.0e-3, steps=150, solver_method=method)
     t_t, tr_t = tsim(TParams(**kw), device="cpu")
@@ -236,8 +236,9 @@ def test_unported_solvers_raise(method, monkeypatch):
         # the stepper itself runs on the port; its "limb" tier does not yet
         monkeypatch.setenv("QST_CHEB_ARITH", "limb")
     kw = production_params_kwargs(3, t_final=1e-3, steps=10, solver_method=method)
-    if method == "ext":
-        # ported: the route runs (its parity tests: tests/test_torch_ext_route.py)
+    if method in ("ext", "krylov", "chebyshev"):
+        # ported: the route runs (its parity tests: tests/test_torch_ext_route.py,
+        # test_torch_krylov.py, test_torch_chebyshev.py)
         t, traces = tsim(TParams(**kw), device="cpu")
         assert len(t) == 10 and np.abs(traces["state_norm"] - 1.0).max() < 1e-12
         return

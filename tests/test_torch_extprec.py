@@ -75,7 +75,7 @@ def test_splits_and_value_identical(shape):
     x = rng.uniform(-1.1, 1.1, shape) * 2.0 ** rng.integers(-30, 1, shape)
     _eq(tx.ext_split(_t(x)), jx.ext_split(_j(x)))
     np.testing.assert_array_equal(tx.ext_split_host(x), jx.ext_split_host(x))
-    _eq(tx.ext_split_upload(x), jx.ext_split_upload(x))
+    _eq(tx.ext_split_upload(x, device="cpu"), jx.ext_split_upload(x))
     limbs = np.asarray(jx.ext_split(_j(x)))
     _eq(tx.ext_val(_t(limbs)), jx.ext_val(_j(limbs)))
 
@@ -87,10 +87,25 @@ def test_coo_pair_split_identical():
     rows, cols = (flat // dim).astype(np.int64), (flat % dim).astype(np.int64)
     va = rng.standard_normal(nnz) * 2.0 ** rng.integers(-40, 3, nnz)
     vb = rng.standard_normal(nnz) * 2.0 ** rng.integers(-40, 3, nnz)
-    got = tx.ext_split_upload_coo_pair_host(rows, cols, va, vb, dim)
+    got = tx.ext_split_upload_coo_pair_host(rows, cols, va, vb, dim, device="cpu")
     want = jx.ext_split_upload_coo_pair_host(rows, cols, va, vb, dim)
     for g, w in zip(got, want):
         _eq(g, w)
+
+
+def test_upload_helpers_default_to_the_card():
+    """Like every entry point of the port, the two upload helpers default to
+    device "cuda" and raise where there is none, never falling back to the
+    host on their own; device="cpu" is asked for explicitly."""
+    if torch.cuda.is_available():
+        pytest.skip("the default device exists here")
+    x = np.linspace(-0.5, 0.5, 12).reshape(3, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tx.ext_split_upload(x)
+    r = np.arange(3, dtype=np.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tx.ext_split_upload_coo_pair_host(r, r, x[0, :3], x[1, :3], 4)
+    assert tx.ext_split_upload(x, device="cpu").device.type == "cpu"
 
 
 def test_carries_identical():

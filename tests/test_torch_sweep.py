@@ -231,6 +231,30 @@ def test_ext_sweep_resumes_inside_a_solve(tmp_path, monkeypatch):
             np.testing.assert_array_equal(got[key], want[key])
 
 
+STEP_SWEEP = dict(SWEEP, sea_detunings_Hz=[0.0, 50_000.0], t_final=2.0e-3, steps=40)
+
+
+@pytest.mark.parametrize("solver", ["krylov", "chebyshev"])
+def test_matrix_free_sweep_tree_and_values_match(solver, tmp_path):
+    """The miniature sweep on the matrix-free stepping solvers (one solve
+    per simulation): the same tree, metrics within 1e-8 relative and traces
+    within 1e-10 of the JAX package's."""
+    cfg = dict(STEP_SWEEP, solver_method=solver)
+    port = tsweep(**cfg, base_dir=str(tmp_path / "port"), device="cpu")
+    ref = jsweep(**cfg, base_dir=str(tmp_path / "ref"))
+    tree = _tree(port)
+    assert tree == _tree(ref)
+    _assert_values_close(_load(os.path.join(port, "summary.json")),
+                         _load(os.path.join(ref, "summary.json")), "summary.json")
+    names = sorted(p for p in tree if p.endswith(".npz") and "time_and_obs" in p)
+    assert len(names) == 6
+    for name in names:
+        got, want = np.load(os.path.join(port, name)), np.load(os.path.join(ref, name))
+        assert np.array_equal(got["t"], want["t"])
+        for key in want.files:
+            assert np.abs(got[key] - want[key]).max() <= 1e-10, (name, key)
+
+
 def test_cli_flags_and_defaults_match_reference():
     def actions(parser):
         return {a.dest: (a.default, a.choices) for a in parser._actions if a.dest != "help"}
