@@ -11,11 +11,16 @@ Phases, each printing one line as it finishes:
      per source, all started together (build seconds, ptxas register and
      spill report);
   3. cmatmul_f32 against its plain PyTorch version on the card, at the eig32
-     main-path shape and at one large square shape, with CUDA-event timings
-     of the kernel, the plain version and one PyTorch library call;
-  4. limb_matmul_canon against its plain version, bit for bit, at the four
-     shapes of the n13 extp apply and one large square shape, with timings
-     and the float64 matmul of the same shape as a yardstick;
+     main-path shape and at one large shape, with device times per call
+     (CUDA-graph replay) of the kernel, the plain version and one PyTorch
+     library call, the eager call's time, and the kernel's 3xTF32
+     tensor-core bound beside the float32 CUDA-core one;
+  4. limb_matmul_canon against its plain version, bit for bit (two calls),
+     at the four shapes of the n13 extp apply and one large square shape,
+     with each launch plan, device times per call of the kernel and of two
+     yardsticks (the same 72 limb-pair products as 12 torch._int_mm calls
+     without the carry; a float64 matmul of the same shape), the eager
+     call's time and the plain version's;
   5. ext_obs_diagonals_int8 against its plain version, bit for bit, at a
      ragged small shape, at (15, 8192, 1024) and at the n12 advance's shape
      (15, 8192, 20480), on random canonical limbs with limb 0 at its full
@@ -89,8 +94,10 @@ import time
 WATCHDOG_S = 600
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: kernel-vs-plain bound: max |kernel - plain| / max |plain| (float32 sums
-#: accumulated in another order; both are IEEE float32, no TF32)
+#: kernel-vs-plain bound: max |kernel - plain| / max |plain| (cmatmul_f32's
+#: 3xTF32 products are ~2^-21 relative per term against the plain version's
+#: IEEE float32 ones, summed in another order; z_expectations_f32's float32
+#: sums against the plain version's float64 sums)
 KERNEL_REL_TOL = 1e-5
 #: eig32 vs eig on every saved trace (the reference's bar for the f32 mode)
 EIG32_ATOL = 2e-4
@@ -136,11 +143,12 @@ N12_STEPS = 20_000
 N12_DETUNING_HZ = 1000.0
 
 #: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
-#: bytes/s) from NVIDIA's data sheets, dense rates at the full power limit
+#: bytes/s, dense TF32 tensor-core FLOP/s) from NVIDIA's data sheets, dense
+#: rates (half the sheets' sparsity figures) at the full power limit
 _PEAKS = {
-    "H100 SXM": (67e12, 1979e12, 3.35e12),
-    "H100 PCIe": (51e12, 1513e12, 2.0e12),
-    "H100 NVL": (60e12, 1671e12, 3.9e12),
+    "H100 SXM": (67e12, 1979e12, 3.35e12, 495e12),
+    "H100 PCIe": (51e12, 1513e12, 2.0e12, 378e12),
+    "H100 NVL": (60e12, 1671e12, 3.9e12, 417.5e12),
 }
 #: int32 operations/s on the CUDA cores (64 INT32 lanes per SM, half the
 #: FP32 lanes, a multiply-add counted as two operations as the float32 rate
@@ -152,7 +160,7 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_peaks(name: str) -> tuple[str, float, float, float]:
+def card_peaks(name: str) -> tuple[str, float, float, float, float]:
     if "PCIe" in name:
         key = "H100 PCIe"
     elif "NVL" in name:
@@ -181,6 +189,28 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times under CUDA events, the median
+    divided by ``n``.  Unlike :func:`cuda_ms` it leaves out the host's work
+    before each launch, which exceeds a small kernel's own time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(graph.replay, reps=reps, warmup=1) / n
+    del graph
+    return ms
+
+
 def check_cmatmul(shape, peaks, seed: int) -> dict:
     """Kernel vs plain version at one (B, M, K, N) shape, with timings."""
     import torch
@@ -201,24 +231,32 @@ def check_cmatmul(shape, peaks, seed: int) -> dict:
         raise AssertionError(f"cmatmul_f32 {shape}: rel err {rel_err:.3e} > {KERNEL_REL_TOL:g}")
 
     a_c, b_c = torch.complex(ar, ai), torch.complex(br, bi)
-    ms = cuda_ms(lambda: cmatmul_f32(ar, ai, br, bi))
-    plain_ms = cuda_ms(lambda: cmatmul_f32_plain(ar, ai, br, bi))
-    library_ms = cuda_ms(lambda: torch.matmul(a_c, b_c))
+    # device times of one call (graph replay), kernel and library alike; the
+    # eager call time adds the wrapper's host work before the launch
+    ms = graph_ms(lambda: cmatmul_f32(ar, ai, br, bi))
+    plain_ms = graph_ms(lambda: cmatmul_f32_plain(ar, ai, br, bi))
+    library_ms = graph_ms(lambda: torch.matmul(a_c, b_c))
+    call_ms = cuda_ms(lambda: cmatmul_f32(ar, ai, br, bi))
 
-    _, flops_peak, _, bytes_peak = peaks
+    _, f32_peak, _, bytes_peak, tf32_peak = peaks
     flops = 8.0 * B * M * K * N
     nbytes = 4.0 * (2 * B * M * K + 2 * B * K * N + 2 * B * M * N)
-    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+    # the kernel's work: three TF32 products (hi*hi, hi*lo, lo*hi) per real
+    # product on the tensor cores
+    t_ops, t_bytes = 3 * flops / tf32_peak * 1e3, nbytes / bytes_peak * 1e3
     return {
         "shape": [B, M, K, N],
         "max_abs_err": abs_err,
         "max_rel_err": rel_err,
         "ms": ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "f32_core_bound_ms": max(flops / f32_peak * 1e3, t_bytes),
         "gflop": flops / 1e9,
+        "tf32_gflop": 3 * flops / 1e9,
         "mbytes": nbytes / 1e6,
     }
 
@@ -250,11 +288,31 @@ def random_limbs(shape, gen):
     return x.to(torch.int8).contiguous()
 
 
+def int_mm_digits(a, b):
+    """The same 72 limb-pair products as 12 ``torch._int_mm`` calls (the
+    pairs of digit s side by side along K, both operands K-contiguous), no
+    carry: a yardstick of what cuBLASLt's int8 path gives for the products,
+    not the same function."""
+    import torch
+
+    L, M, K = a.shape
+    N = b.shape[2]
+    ops = []
+    for s in range(L + 2):
+        j0, j1 = max(0, s - L + 1), min(s + 1, L)
+        a_s = a[j0:j1].permute(1, 0, 2).reshape(M, (j1 - j0) * K).contiguous()
+        b_t = b[s - j1 + 1: s - j0 + 1].flip(0).permute(2, 0, 1).reshape(N, (j1 - j0) * K).contiguous()
+        ops.append((a_s, b_t))
+    return lambda: [torch._int_mm(x, y.t()) for x, y in ops]
+
+
 def check_limb(name, peaks, seed: int) -> dict:
-    """limb_matmul_canon vs its plain version at one shape, with timings."""
+    """limb_matmul_canon vs its plain version at one shape (two calls, both
+    bit for bit), with timings, its launch plan and the yardsticks."""
     import torch
 
     from quantumsimulations_tpu_torch.ops.limb_kernels import (
+        limb_launch_plan,
         limb_matmul_canon,
         limb_matmul_canon_plain,
         live_pairs,
@@ -264,31 +322,42 @@ def check_limb(name, peaks, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a, b = random_limbs(a_shape, gen), random_limbs(b_shape, gen)
     out = limb_matmul_canon(a, b, bits=6, **kw)
+    again = limb_matmul_canon(a, b, bits=6, **kw)
     ref = limb_matmul_canon_plain(a, b, 6, **kw)
     torch.cuda.synchronize()
     n_diff = int((out != ref).sum())
     if not torch.equal(out, ref):
         raise AssertionError(f"limb_matmul_canon {name}: {n_diff} limbs differ from the plain version")
+    if not torch.equal(out, again):
+        raise AssertionError(f"limb_matmul_canon {name}: two calls on the same inputs differ")
     max_abs_err = float((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
 
     L, M, K = a_shape
     N = b_shape[2]
+    plan = limb_launch_plan(M, K, N, torch.cuda.get_device_properties(0).multi_processor_count)
     af, bf = a[0].double(), b[0].double()
-    ms = cuda_ms(lambda: limb_matmul_canon(a, b, bits=6, **kw))
+    ms = graph_ms(lambda: limb_matmul_canon(a, b, bits=6, **kw))
+    call_ms = cuda_ms(lambda: limb_matmul_canon(a, b, bits=6, **kw))
     plain_ms = cuda_ms(lambda: limb_matmul_canon_plain(a, b, 6, **kw), reps=5)
-    library_ms = cuda_ms(lambda: torch.matmul(af, bf))
+    f64_ms = graph_ms(lambda: torch.matmul(af, bf))
+    int_mm_ms = graph_ms(int_mm_digits(a, b))
 
-    _, _, int8_peak, bytes_peak = peaks
+    _, _, int8_peak, bytes_peak, _ = peaks
     ops = 2.0 * live_pairs(L) * M * N * K
     nbytes = float(L * (M * K + K * N + M * N))
     t_ops, t_bytes = ops / int8_peak * 1e3, nbytes / bytes_peak * 1e3
     return {
         "shape": [list(a_shape), list(b_shape)],
         "transpose_out": bool(kw.get("transpose_out", False)),
+        "plan": {"tile": [plan.tile_m, plan.tile_n], "ksplit": plan.ksplit,
+                 "kslice": plan.kslice, "blocks": plan.blocks},
         "max_abs_err": max_abs_err,
         "ms": ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "library_ms": None,
+        "f64_matmul_ms": f64_ms,
+        "int_mm_digits_ms": int_mm_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "gop": ops / 1e9,
@@ -915,8 +984,8 @@ def main() -> int:
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
-        f"{peaks[0]} data sheet: {peaks[1] / 1e12:g} TFLOP/s f32, {peaks[2] / 1e12:g} TOP/s "
-        f"int8 (dense), {peaks[3] / 1e12:g} TB/s")
+        f"{peaks[0]} data sheet: {peaks[1] / 1e12:g} TFLOP/s f32, {peaks[4] / 1e12:g} TFLOP/s "
+        f"TF32 (dense), {peaks[2] / 1e12:g} TOP/s int8 (dense), {peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
     built = build_all(extra_flags=("-Xptxas", "-v"))
@@ -930,21 +999,27 @@ def main() -> int:
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
         say(f"[3/14] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
-            f"(bound {KERNEL_REL_TOL:g}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"(bound {KERNEL_REL_TOL:g}), device ms per call: kernel {r['ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, library (complex64 matmul) {r['library_ms']:.4f}; eager call "
+            f"{r['call_ms']:.4f} ms; 3xTF32 bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['tf32_gflop']:.1f} GFLOP), float32 CUDA-core bound {r['f32_core_bound_ms']:.4f} ms")
 
     limb = {}
     for i, lname in enumerate(LIMB_SHAPES):
         r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
         say(f"[4/14] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
-            f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, f64 matmul of the same "
-            f"shape {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit (two "
+            f"calls), plan {r['plan']}; device ms per call: kernel {r['ms']:.4f}, 12 "
+            f"torch._int_mm digit products (no carry) {r['int_mm_digits_ms']:.4f}, f64 matmul of "
+            f"the same shape {r['f64_matmul_ms']:.4f}; eager call {r['call_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     per_apply = {key: sum(n * limb[s][key] for s, n in LIMB_PER_APPLY.items())
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    say(f"      one extp apply (6 launches): kernel {per_apply['ms']:.4f} ms, plain "
-        f"{per_apply['plain_ms']:.4f} ms, f64 matmuls {per_apply['library_ms']:.4f} ms, bound "
-        f"{per_apply['bound_ms']:.5f} ms")
+                 for key in ("ms", "call_ms", "plain_ms", "f64_matmul_ms", "int_mm_digits_ms",
+                             "bound_ms")}
+    say(f"      one extp apply (6 launches): kernel {per_apply['ms']:.4f} ms device "
+        f"({per_apply['call_ms']:.4f} ms as eager calls), plain {per_apply['plain_ms']:.4f} ms, "
+        f"_int_mm digits {per_apply['int_mm_digits_ms']:.4f} ms, f64 matmuls "
+        f"{per_apply['f64_matmul_ms']:.4f} ms, bound {per_apply['bound_ms']:.5f} ms")
 
     # the n13 and n12 oracles run on the host in child processes while the
     # card works
@@ -1143,6 +1218,10 @@ def main() -> int:
             "bound_by": at_main["bound_by"],
             "library_ms": at_main["library_ms"],
             "library_call": "torch.matmul on complex64",
+            "timing": "ms, plain_ms, library_ms: device time per call (CUDA-graph replay); "
+                      "call_ms: one eager call under CUDA events (host work included)",
+            "call_ms": at_main["call_ms"],
+            "f32_core_bound_ms": at_main["f32_core_bound_ms"],
             "shapes": [at_main, at_large],
             "sweeps": {"eig": run64, "eig32": run32},
         },
@@ -1160,10 +1239,16 @@ def main() -> int:
             "plain_ms": per_apply["plain_ms"],
             "bound_ms": per_apply["bound_ms"],
             "bound_by": "operations",
-            "library_ms": per_apply["library_ms"],
-            "library_call": "torch.matmul on float64 of the same (M, K, N) per launch: the f64 "
-                            "tier's product of the same shape, not the same function; no single "
-                            "PyTorch call computes limb products with the carry",
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes limb products with the carry",
+            "timing": "ms: device time per call (CUDA-graph replay); call_ms: one eager call "
+                      "under CUDA events (host work included); plain_ms: eager",
+            "call_ms": per_apply["call_ms"],
+            "yardsticks_ms": {"int_mm_digits": per_apply["int_mm_digits_ms"],
+                              "f64_matmul": per_apply["f64_matmul_ms"],
+                              "note": "12 torch._int_mm calls of the same 72 limb-pair products "
+                                      "without the carry, and a float64 matmul of each launch's "
+                                      "(M, K, N): not the same function"},
             "shapes": limb,
             "n13": n13,
         },

@@ -21,7 +21,8 @@ Parameters kept for call-site compatibility with the JAX package:
     ``min(tm, round_up(M, 32))`` as the JAX package clamps it.  Without
     ``transpose_out`` it is a no-op.
   * ``tn``, ``tk`` — no-ops: they sized the TPU kernel's VMEM tiles; the
-    CUDA kernel picks its own tiles and masks ragged edges.
+    CUDA kernel's tiles and K split come from :func:`limb_launch_plan`, and
+    it masks ragged edges itself.
   * ``interpret`` — a no-op: it selected Pallas interpret mode; here the
     tensors' device alone picks the kernel (CUDA) or the plain version (CPU).
 """
@@ -29,6 +30,8 @@ Parameters kept for call-site compatibility with the JAX package:
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -127,14 +130,91 @@ def _check(a, b, bits: int) -> tuple[int, int, int, int]:
     return L, M, K, N
 
 
+#: the CUDA kernel's output tile and K step (csrc/limb_matmul_canon.cu)
+TILE_M, TILE_N, K_STEP = 32, 32, 32
+#: int32 digit registers a kernel thread holds (12 digits x 4) and threads
+#: per block: one K slice's share of the split-K workspace per output tile
+#: (the kernel refuses a workspace smaller than its own count)
+_DIGIT_REGS, _THREADS = 48, 256
+#: streaming multiprocessors of an H100 (the plan's default)
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class LimbPlan:
+    """Launch plan of one limb product: a grid of (grid_m, grid_n) output
+    tiles of (tile_m, tile_n), each summed over ``ksplit`` K slices of
+    ``kslice`` (a multiple of ``k_step``); slice z is
+    [z * kslice, min(K, (z + 1) * kslice))."""
+
+    tile_m: int
+    tile_n: int
+    k_step: int
+    grid_m: int
+    grid_n: int
+    ksplit: int
+    kslice: int
+
+    @property
+    def tiles(self) -> int:
+        return self.grid_m * self.grid_n
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.ksplit
+
+    @property
+    def workspace_ints(self) -> int:
+        """int32 of the split-K workspace (0 without a split)."""
+        return self.blocks * _DIGIT_REGS * _THREADS if self.ksplit > 1 else 0
+
+    def k_slices(self, K: int) -> list[tuple[int, int]]:
+        return [(z * self.kslice, min(K, (z + 1) * self.kslice)) for z in range(self.ksplit)]
+
+
+@functools.lru_cache(maxsize=256)
+def limb_launch_plan(M: int, K: int, N: int, sms: int = H100_SMS) -> LimbPlan:
+    """Tiles and K split of one (L, M, K) @ (L, K, N) launch.
+
+    Output tiles of TILE_M x TILE_N.  A product with at least one tile per
+    SM runs unsplit; a smaller output splits K into slices of whole K steps,
+    aiming at two blocks per SM (the kernel's occupancy), with no empty
+    slice.  Every slice's int32 sums stay within the wrapper's headroom
+    assertion, which covers the full K.
+    """
+    grid_m, grid_n = -(-M // TILE_M), -(-N // TILE_N)
+    tiles = max(1, grid_m * grid_n)
+    steps = max(1, -(-K // K_STEP))
+    ksplit = 1 if tiles >= sms else min(steps, -(-2 * sms // tiles))
+    kslice = -(-steps // ksplit) * K_STEP
+    ksplit = max(1, -(-K // kslice))
+    return LimbPlan(TILE_M, TILE_N, K_STEP, grid_m, grid_n, ksplit, kslice)
+
+
 def _lib_fn():
     from ..kernels._build import load_library
 
     fn = load_library("limb_matmul_canon").qst_limb_matmul_canon
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+#: split-K tile counters per (device, stream): zeroed once, and the kernel's
+#: last-arriving block resets each one to 0, so launches in stream order
+#: share them without a memset
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+_sms: dict[int, int] = {}
+
+
+def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return c
 
 
 def _launch(a, b, bits: int, tm: int, transpose_out: bool) -> torch.Tensor:
@@ -152,10 +232,21 @@ def _launch(a, b, bits: int, tm: int, transpose_out: bool) -> torch.Tensor:
         row_tile, ldo = M, N
     if M * N == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    dev = a.device
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = limb_launch_plan(M, K, N, _sms[dev.index])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = counters = None
+        if plan.ksplit > 1:
+            ws = torch.empty(plan.workspace_ints, dtype=torch.int32, device=dev)
+            counters = _tile_counters(dev, stream, plan.tiles)
         rc = _lib_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                       L, M, K, N, bits, row_tile, ldo, stream)
+                       L, M, K, N, bits, row_tile, ldo,
+                       plan.tile_m, plan.tile_n, plan.k_step, plan.ksplit, plan.kslice,
+                       None if ws is None else ws.data_ptr(), plan.workspace_ints,
+                       None if counters is None else counters.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"limb_matmul_canon kernel launch failed with CUDA error {rc}")
     launch_counts["limb_matmul_canon"] += 1

@@ -7,10 +7,13 @@ JAX, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Bounds: cmatmul_f32 against its plain PyTorch version, 1e-5 of the output's
-largest magnitude (both IEEE float32, summed in another order); the eig32
+largest magnitude (the kernel's 3xTF32 tensor-core products are ~2^-21
+relative per term, summed in another order than the plain IEEE float32
+products); the eig32
 propagator against the float64 one, 2e-4 (the JAX package's bar);
 limb_matmul_canon against its plain version, equal bit for bit (int32 sums
-are exact in any order); the extp Chebyshev stepper against the f64 one,
+are exact in any order and under any split of K; two calls are also equal
+to each other); the extp Chebyshev stepper against the f64 one,
 1e-11 (the JAX package's bar, tests/test_limb_kernels.py:161);
 ext_obs_diagonals_int8 against its plain version and the ext limb product
 (int8 GEMMs through cuBLASLt) against the CPU, equal bit for bit; the ext
@@ -52,7 +55,9 @@ def cuda_device():
 
 
 @pytest.mark.parametrize(
-    "shape", [(1, 128, 128, 128), (2, 64, 200, 96), (1, 300, 513, 130), (39, 128, 128, 1680)]
+    "shape",
+    [(1, 128, 128, 128), (2, 64, 200, 96), (1, 300, 513, 130), (39, 128, 128, 1680),
+     (1, 5, 1, 3), (2, 9, 7, 12), (1, 15, 9, 6), (1, 2048, 2048, 1024)],
 )
 def test_kernel_matches_plain(cuda_device, shape):
     B, M, K, N = shape
@@ -132,7 +137,11 @@ def _limbs(shape, gen, device):
         (256, 128, 256, None),  # H_R
         (33, 50, 70, None),  # ragged M, N, K
         (96, 37, 24, 32),  # ragged K, transpose_out
-        (640, 301, 700, None),  # the 32x32-tile launch, ragged
+        (640, 301, 700, None),  # unsplit, ragged K
+        (7, 45, 5, None),  # M, N < 16, K not a multiple of 32
+        (12, 100, 9, None),  # M, N < 16, K split in four slices
+        (128, 4096, 64, None),  # split K: 32 slices of 128
+        (2048, 2048, 2048, None),  # large square, unsplit
     ],
 )
 def test_limb_kernel_matches_plain(cuda_device, M, K, N, tm):
@@ -144,6 +153,27 @@ def test_limb_kernel_matches_plain(cuda_device, M, K, N, tm):
     torch.cuda.synchronize()
     assert launch_counts["limb_matmul_canon"] == before + 1
     assert torch.equal(out, lk.limb_matmul_canon_plain(a, b, 6, **kw))
+
+
+def test_limb_kernel_split_k_is_deterministic(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    a, b = _limbs((10, 128, 1792), gen, cuda_device), _limbs((10, 1792, 128), gen, cuda_device)
+    assert lk.limb_launch_plan(128, 1792, 128).ksplit > 1
+    first = lk.limb_matmul_canon(a, b, bits=6)
+    second = lk.limb_matmul_canon(a, b, bits=6)
+    assert torch.equal(first, second)
+    assert torch.equal(first, lk.limb_matmul_canon_plain(a, b, 6))
+
+
+def test_limb_kernel_extreme_limbs_long_k(cuda_device):
+    """Full-range limbs with -128 rows and columns at the cross stage's
+    K = 1792: the largest digits the headroom allows, through split K."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    a = torch.randint(-128, 128, (10, 128, 1792), generator=gen, device=cuda_device).to(torch.int8)
+    b = torch.randint(-128, 128, (10, 1792, 128), generator=gen, device=cuda_device).to(torch.int8)
+    a[:, 0, :] = -128
+    b[:, :, 0] = -128
+    assert torch.equal(lk.limb_matmul_canon(a, b, bits=6), lk.limb_matmul_canon_plain(a, b, 6))
 
 
 def test_limb_kernel_extreme_limbs(cuda_device):

@@ -132,3 +132,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_live_pairs_count():
     assert tlk.live_pairs(L) == 72
+
+
+#: the four products of the n13 extp apply (chip_smoke.LIMB_SHAPES) and
+#: ragged ones: (M, K, N)
+MAIN_PATH_SHAPES = [(256, 128, 256), (1792, 128, 128), (128, 1792, 128), (256, 128, 256)]
+RAGGED_SHAPES = [(33, 50, 70), (7, 45, 5), (12, 100, 9), (1, 1, 1), (5, 0, 3), (640, 301, 700),
+                 (128, 4096, 64), (2048, 2048, 2048), (40000, 16, 8)]
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_PATH_SHAPES + RAGGED_SHAPES)
+def test_launch_plan_covers_every_tile_once_and_partitions_k(M, K, N):
+    plan = tlk.limb_launch_plan(M, K, N)
+    # output tiles: a grid that covers M x N with no tile wholly outside it
+    assert plan.grid_m * plan.tile_m >= M > (plan.grid_m - 1) * plan.tile_m or M == 0
+    assert plan.grid_n * plan.tile_n >= N > (plan.grid_n - 1) * plan.tile_n or N == 0
+    assert plan.blocks == plan.grid_m * plan.grid_n * plan.ksplit
+    # K slices: whole K steps, contiguous, none empty, covering [0, K)
+    assert plan.kslice % plan.k_step == 0 and plan.kslice >= plan.k_step
+    slices = plan.k_slices(K)
+    assert len(slices) == plan.ksplit
+    assert slices[0][0] == 0 and slices[-1][1] == K
+    assert all(b0 == a1 for (_, a1), (b0, _) in zip(slices, slices[1:]))
+    assert all(e > b for b, e in slices) or K == 0
+    # the kernel's own check of the plan (csrc/limb_matmul_canon.cu)
+    assert (plan.ksplit - 1) * plan.kslice < max(K, 1) <= plan.ksplit * plan.kslice or K == 0
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_PATH_SHAPES)
+def test_launch_plan_fills_the_card_on_the_main_path(M, K, N):
+    assert tlk.limb_launch_plan(M, K, N).blocks >= tlk.H100_SMS
+
+
+@pytest.mark.parametrize("bits", [1, 6, 7])
+def test_launch_plan_slices_stay_within_the_int32_headroom(bits):
+    """The wrapper asserts K * 2^(2*bits) * L < 2^31 for the full K; every
+    slice is shorter, so its digit sums (and their sum) stay exact."""
+    K = (2**31 - 1) // (2 ** (2 * bits) * L)
+    for M, N in [(16, 16), (128, 128)]:
+        plan = tlk.limb_launch_plan(M, K, N)
+        assert plan.ksplit > 1
+        for b, e in plan.k_slices(K):
+            assert (e - b) * 2 ** (2 * bits) * L < 2**31
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 1792, 128), (12, 100, 9), (256, 128, 256)])
+def test_split_k_digit_sums_equal_the_whole_k(M, K, N):
+    """What the kernel's last-arriving block does: the int32 digits of each
+    K slice, summed, then one carry, equal the plain version bit for bit."""
+    rng = np.random.default_rng(M + K + N)
+    _, a = _canon(rng, (M, K))
+    _, b = _canon(rng, (K, N))
+    at, bt = torch.as_tensor(a), torch.as_tensor(b)
+    plan = tlk.limb_launch_plan(M, K, N)
+    assert plan.ksplit > 1
+    digits = sum(tlk.product_digits(at[:, :, s:e].contiguous(), bt[:, s:e].contiguous())
+                 for s, e in plan.k_slices(K))
+    np.testing.assert_array_equal(tlk.carry_digits(digits, BITS, L).numpy(),
+                                  tlk.limb_matmul_canon_plain(at, bt, BITS).numpy())
