@@ -25,12 +25,14 @@ Phases, each printing one line as it finishes:
      ragged small shape, at (15, 8192, 1024) and at the n12 advance's shape
      (15, 8192, 20480), on random canonical limbs with limb 0 at its full
      range, with CUDA-event timings of the kernel and the plain version;
-  6. z_expectations_f32 against its plain version on the card (the plain
-     version sums the same float32 products in float64), at the JAX test's
-     ragged shape (4 sites, dim 16, T 37, float64), at one eig32 model's
-     state block (7, 128, 20000) float32 and at (14, 16384, 2048) float64,
-     with CUDA-event timings of the kernel, the plain version and one
-     float32 matmul on a precomputed |psi|^2 (the library yardstick);
+  6. z_expectations_f32 against its plain version on the card (both sum
+     the same float32 products in float64), at the JAX test's ragged shape
+     (4 sites, dim 16, T 37, float64), at one eig32 model's state block
+     (7, 128, 20000) float32 and at (14, 16384, 2048) float64, with the
+     launch plan, the share of outputs equal bit for bit, two calls equal,
+     device times per call (CUDA-graph replay) of the kernel, the plain
+     version and two yardsticks (the same-function PyTorch chain, and a
+     float32 matmul on a precomputed |psi|^2), and the eager call's time;
   7. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
@@ -63,7 +65,8 @@ Phases, each printing one line as it finishes:
      phase 9's f64 rows (first 3 columns) and phase 10's oracle within
      1e-10; then z_expectations_f32 on those states on the card, whose
      sea-site sum and rare row must be within 1e-5 of the route's float64
-     Iz_sea and Iz_R, and within KERNEL_REL_TOL of its plain version; and
+     Iz_sea and Iz_R, and within KERNEL_REL_TOL of its plain version (timed
+     as in phase 6, and once more with a cold L2); and
      the public route ``simulate_rare(solver_method="chebyshev")`` at that
      size, which must give the same rows;
  14. a JSON line with every kernel's launches and timings.
@@ -96,8 +99,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 #: kernel-vs-plain bound: max |kernel - plain| / max |plain| (cmatmul_f32's
 #: 3xTF32 products are ~2^-21 relative per term against the plain version's
-#: IEEE float32 ones, summed in another order; z_expectations_f32's float32
-#: sums against the plain version's float64 sums)
+#: IEEE float32 ones, summed in another order; z_expectations_f32's float64
+#: sums against the plain version's, in another order)
 KERNEL_REL_TOL = 1e-5
 #: eig32 vs eig on every saved trace (the reference's bar for the f32 mode)
 EIG32_ATOL = 2e-4
@@ -143,12 +146,13 @@ N12_STEPS = 20_000
 N12_DETUNING_HZ = 1000.0
 
 #: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
-#: bytes/s, dense TF32 tensor-core FLOP/s) from NVIDIA's data sheets, dense
-#: rates (half the sheets' sparsity figures) at the full power limit
+#: bytes/s, dense TF32 tensor-core FLOP/s, float64 FLOP/s without tensor
+#: cores) from NVIDIA's data sheets, dense rates (half the sheets' sparsity
+#: figures) at the full power limit
 _PEAKS = {
-    "H100 SXM": (67e12, 1979e12, 3.35e12, 495e12),
-    "H100 PCIe": (51e12, 1513e12, 2.0e12, 378e12),
-    "H100 NVL": (60e12, 1671e12, 3.9e12, 417.5e12),
+    "H100 SXM": (67e12, 1979e12, 3.35e12, 495e12, 34e12),
+    "H100 PCIe": (51e12, 1513e12, 2.0e12, 378e12, 26e12),
+    "H100 NVL": (60e12, 1671e12, 3.9e12, 417.5e12, 30e12),
 }
 #: int32 operations/s on the CUDA cores (64 INT32 lanes per SM, half the
 #: FP32 lanes, a multiply-add counted as two operations as the float32 rate
@@ -160,7 +164,7 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_peaks(name: str) -> tuple[str, float, float, float, float]:
+def card_peaks(name: str) -> tuple[str, float, float, float, float, float]:
     if "PCIe" in name:
         key = "H100 PCIe"
     elif "NVL" in name:
@@ -211,6 +215,38 @@ def graph_ms(fn, n: int = 10, reps: int = 5) -> float:
     return ms
 
 
+def cold_ms(fn, reps: int = 10, flush_bytes: int = 512 << 20) -> float:
+    """Device time of one call of ``fn`` with a cold L2 cache: one call
+    captured in a CUDA graph, replayed ``reps`` times under CUDA events,
+    each replay after a read of ``flush_bytes`` (ten times the H100's 50 MB
+    L2) has evicted what the call would find; the median.  The read runs
+    long enough on the card for the host to enqueue the replay behind it."""
+    import torch
+
+    flush = torch.zeros(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph, flush
+    return statistics.median(times)
+
+
 def check_cmatmul(shape, peaks, seed: int) -> dict:
     """Kernel vs plain version at one (B, M, K, N) shape, with timings."""
     import torch
@@ -238,7 +274,7 @@ def check_cmatmul(shape, peaks, seed: int) -> dict:
     library_ms = graph_ms(lambda: torch.matmul(a_c, b_c))
     call_ms = cuda_ms(lambda: cmatmul_f32(ar, ai, br, bi))
 
-    _, f32_peak, _, bytes_peak, tf32_peak = peaks
+    _, f32_peak, _, bytes_peak, tf32_peak, _ = peaks
     flops = 8.0 * B * M * K * N
     nbytes = 4.0 * (2 * B * M * K + 2 * B * K * N + 2 * B * M * N)
     # the kernel's work: three TF32 products (hi*hi, hi*lo, lo*hi) per real
@@ -342,7 +378,7 @@ def check_limb(name, peaks, seed: int) -> dict:
     f64_ms = graph_ms(lambda: torch.matmul(af, bf))
     int_mm_ms = graph_ms(int_mm_digits(a, b))
 
-    _, _, int8_peak, bytes_peak, _ = peaks
+    _, _, int8_peak, bytes_peak, _, _ = peaks
     ops = 2.0 * live_pairs(L) * M * N * K
     nbytes = float(L * (M * K + K * N + M * N))
     t_ops, t_bytes = ops / int8_peak * 1e3, nbytes / bytes_peak * 1e3
@@ -531,46 +567,82 @@ def check_ext_obs(shape, peaks, seed: int, reps: int = 10, plain_reps: int = 3) 
     }
 
 
-def zexp_bound(n: int, dim: int, T: int, itemsize: int, peaks) -> tuple[float, str]:
+def zexp_bound(n: int, dim: int, T: int, itemsize: int, peaks,
+               sign_itemsize: int = 8) -> tuple[float, str]:
     """Least time of z_expectations_f32 at one shape: both planes read once,
     the sign table read once, the output written once, over the HBM rate;
-    (2n + 3) float32 operations per (d, t) (the square sum and n
-    multiply-adds) over the float32 rate without tensor cores."""
-    nbytes = 2.0 * dim * T * itemsize + 4.0 * n * dim + 4.0 * n * T
+    the square sum (3 operations) and n float64 multiply-adds (2 each) per
+    (d, t), the kernel's work, over the FP64 rate without tensor cores."""
+    nbytes = 2.0 * dim * T * itemsize + sign_itemsize * n * dim + 4.0 * n * T
     ops = (2.0 * n + 3.0) * dim * T
-    t_ops, t_bytes = ops / peaks[1] * 1e3, nbytes / peaks[3] * 1e3
+    t_ops, t_bytes = ops / peaks[5] * 1e3, nbytes / peaks[3] * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def time_zexp(re, im, signs, peaks) -> dict:
-    """Kernel vs plain version on the card for one block of states: errors,
-    CUDA-event timings of the kernel, the plain version and the library
-    yardstick (one float32 matmul on a precomputed |psi|^2, which leaves out
-    the square sum), and the bound."""
+def zexp_chain(re, im, signs):
+    """The PyTorch chain that computes the same function as
+    z_expectations_f32 (the square sum in the planes' dtype, rounded to
+    float32, and one float32 matmul with the float32 signs): the kernel's
+    yardstick, summed in float32."""
     import torch
 
-    from quantumsimulations_tpu_torch.ops.zexp import z_expectations_f32, z_expectations_f32_plain
+    s32 = signs.to(torch.float32)
+    return lambda: torch.matmul(s32, (re * re + im * im).to(torch.float32))
+
+
+def time_zexp(re, im, signs, peaks, cold: bool = False) -> dict:
+    """Kernel vs plain version on the card for one block of states: errors,
+    the share of outputs equal to the plain version's bit for bit, two calls
+    equal to each other, the launch plan; device times per call (CUDA-graph
+    replay) of the kernel, the plain version and two yardsticks (the
+    same-function chain, and a float32 matmul on a |psi|^2 computed
+    beforehand, which leaves out the square sum), the eager call's time,
+    with ``cold`` the kernel's time after the L2 is flushed, and the bound."""
+    import dataclasses
+
+    import torch
+
+    from quantumsimulations_tpu_torch.ops.zexp import (
+        z_expectations_f32,
+        z_expectations_f32_plain,
+        zexp_launch_plan,
+    )
 
     got = z_expectations_f32(re, im, signs)
+    again = z_expectations_f32(re, im, signs)
     want = z_expectations_f32_plain(re, im, signs)
+    chain = zexp_chain(re, im, signs)
+    lib = chain()
     s32 = signs.to(torch.float32)
     p2 = (re * re + im * im).to(torch.float32)
-    lib = torch.matmul(s32, p2)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("z_expectations_f32: two calls on the same inputs differ")
     scale = float(want.abs().max())
     abs_err = float((got - want).abs().max())
-    rel_err = abs_err / scale
     n, (dim, T) = signs.shape[0], re.shape
-    bound_ms, bound_by = zexp_bound(n, dim, T, re.element_size(), peaks)
-    return {
+    plan = zexp_launch_plan(n, dim, T, re.element_size(),
+                            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    bound_ms, bound_by = zexp_bound(n, dim, T, re.element_size(), peaks, signs.element_size())
+    kernel = lambda: z_expectations_f32(re, im, signs)  # noqa: E731
+    r = {
         "shape": [n, dim, T, str(re.dtype).replace("torch.", "")],
-        "max_abs_err": abs_err, "max_rel_err": rel_err,
-        "library_rel_err": float((lib - want).abs().max()) / scale,
-        "ms": cuda_ms(lambda: z_expectations_f32(re, im, signs)),
-        "plain_ms": cuda_ms(lambda: z_expectations_f32_plain(re, im, signs)),
-        "library_ms": cuda_ms(lambda: torch.matmul(s32, p2)),
+        "sign_dtype": str(signs.dtype).replace("torch.", ""),
+        "max_abs_err": abs_err, "max_rel_err": abs_err / scale,
+        "bit_equal_share": float((got == want).double().mean()),
+        "chain_rel_err": float((lib - want).abs().max()) / scale,
+        "plan": dict(dataclasses.asdict(plan), blocks=plan.blocks, threads=plan.threads,
+                     partials=plan.partials),
+        "ms": graph_ms(kernel),
+        "call_ms": cuda_ms(kernel),
+        "plain_ms": graph_ms(lambda: z_expectations_f32_plain(re, im, signs)),
+        "yardsticks_ms": {"chain": graph_ms(chain),
+                          "matmul_on_p2": graph_ms(lambda: torch.matmul(s32, p2))},
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if cold:
+        r["cold_ms"] = cold_ms(kernel)
+    return r
 
 
 def check_zexp(shape, peaks, seed: int) -> dict:
@@ -711,7 +783,7 @@ def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
     if not vs_rows <= ZEXP_ROUTE_ATOL:
         raise AssertionError(f"z_expectations_f32 vs the route's float64 Iz rows: {vs_rows:.3e} > "
                              f"{ZEXP_ROUTE_ATOL:g}")
-    at_path = time_zexp(re, im, signs, peaks)
+    at_path = time_zexp(re, im, signs, peaks, cold=True)
     if not at_path["max_rel_err"] <= KERNEL_REL_TOL:
         raise AssertionError(f"z_expectations_f32 on the route's states: rel err "
                              f"{at_path['max_rel_err']:.3e} > {KERNEL_REL_TOL:g}")
@@ -985,7 +1057,8 @@ def main() -> int:
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
         f"{peaks[0]} data sheet: {peaks[1] / 1e12:g} TFLOP/s f32, {peaks[4] / 1e12:g} TFLOP/s "
-        f"TF32 (dense), {peaks[2] / 1e12:g} TOP/s int8 (dense), {peaks[3] / 1e12:g} TB/s")
+        f"TF32 (dense), {peaks[2] / 1e12:g} TOP/s int8 (dense), {peaks[5] / 1e12:g} TFLOP/s f64, "
+        f"{peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
     built = build_all(extra_flags=("-Xptxas", "-v"))
@@ -1041,9 +1114,12 @@ def main() -> int:
     for i, zshape in enumerate(ZEXP_SHAPES):
         r = zexp[zshape] = check_zexp(zshape, peaks, seed=30 + i)
         say(f"[6/14] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
-            f"{KERNEL_REL_TOL:g}; float32 matmul {r['library_rel_err']:.3e}), kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{KERNEL_REL_TOL:g}; the float32 chain {r['chain_rel_err']:.3e}), "
+            f"{r['bit_equal_share']:.4f} of outputs equal to plain bit for bit, two calls "
+            f"equal; plan {r['plan']}; device ms per call: kernel {r['ms']:.5f}, plain "
+            f"{r['plain_ms']:.5f}, same-function chain {r['yardsticks_ms']['chain']:.5f}, "
+            f"matmul on a precomputed |psi|^2 {r['yardsticks_ms']['matmul_on_p2']:.5f}; eager "
+            f"call {r['call_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
@@ -1190,8 +1266,11 @@ def main() -> int:
             f"{N13_ORACLE_ATOL:g}); launches {cheb['launches']}; z_expectations_f32 on the "
             f"route's states {tuple(zp['shape'])}: vs the float64 Iz rows "
             f"{cheb['zexp_vs_rows']:.2e} (bound {ZEXP_ROUTE_ATOL:g}), rel err vs plain "
-            f"{zp['max_rel_err']:.3e}, kernel {zp['ms']:.4f} ms, plain {zp['plain_ms']:.4f} ms, "
-            f"library {zp['library_ms']:.4f} ms, bound {zp['bound_ms']:.5f} ms ({zp['bound_by']})")
+            f"{zp['max_rel_err']:.3e} ({zp['bit_equal_share']:.4f} bit-equal), plan "
+            f"{zp['plan']}; device ms per call: kernel {zp['ms']:.5f} (cold L2 "
+            f"{zp['cold_ms']:.5f}), plain {zp['plain_ms']:.5f}, same-function chain "
+            f"{zp['yardsticks_ms']['chain']:.5f}; eager call {zp['call_ms']:.5f} ms; bound "
+            f"{zp['bound_ms']:.5f} ms ({zp['bound_by']})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for proc, _ in oracles.values():
@@ -1281,9 +1360,20 @@ def main() -> int:
             "plain_ms": zp["plain_ms"],
             "bound_ms": zp["bound_ms"],
             "bound_by": zp["bound_by"],
-            "library_ms": zp["library_ms"],
-            "library_call": "torch.matmul of the float32 signs and a precomputed float32 "
-                            "|psi|^2: leaves out the square sum",
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the square sum and the "
+                            "signed reduction",
+            "timing": "ms, plain_ms, yardsticks: device time per call (CUDA-graph replay, "
+                      "warm L2); cold_ms: one call after a 512 MB read; call_ms: one eager "
+                      "call under CUDA events (host work included)",
+            "call_ms": zp["call_ms"],
+            "cold_ms": zp["cold_ms"],
+            "yardsticks_ms": {"chain": zp["yardsticks_ms"]["chain"],
+                              "matmul_on_p2": zp["yardsticks_ms"]["matmul_on_p2"],
+                              "note": "chain: torch.matmul(signs32, (re*re + im*im).to(float32)), "
+                                      "the same function summed in float32; matmul_on_p2: the "
+                                      "same matmul on a |psi|^2 computed beforehand, which "
+                                      "leaves out the square sum"},
             "shapes": {str(k): v for k, v in zexp.items()},
             "n13_chebyshev": {k: v for k, v in cheb.items() if k != "zexp"},
             "n12_krylov": kry,

@@ -19,8 +19,9 @@ ext_obs_diagonals_int8 against its plain version and the ext limb product
 (int8 GEMMs through cuBLASLt) against the CPU, equal bit for bit; the ext
 route's rows on the card against the CPU, 1e-13 (equal limbs, the float64
 observable combine summed in another order); z_expectations_f32 against its
-plain version, 1e-5 of the output's largest magnitude (the kernel's float32
-sums against the plain version's float64 sum of the same float32 products); the matrix-free krylov and chebyshev routes on the card
+plain version, 1e-5 of the output's largest magnitude (both sum the same
+float32 products in float64, in another order; two calls equal bit for bit);
+the matrix-free krylov and chebyshev routes on the card
 against the CPU, 1e-12 (the same float64 operations, reduced in another
 order).
 """
@@ -306,17 +307,24 @@ def test_ext_route_on_card_equals_cpu(cuda_device):
     assert np.abs(card[6] - 1.0).max() < 1e-12
 
 
+def _zexp_inputs(device, n, dim, T, dtype, sign_dtype=torch.float64, seed=None):
+    gen = torch.Generator(device=device).manual_seed(n * dim + T if seed is None else seed)
+    re, im = (torch.randn(dim, T, generator=gen, device=device, dtype=dtype) for _ in range(2))
+    dims = (2,) * (n - 1) + (dim >> (n - 1),)
+    signs = torch.as_tensor(zexp.z_sign_table(dims), device=device).to(sign_dtype)
+    return re, im, signs
+
+
+@pytest.mark.parametrize("sign_dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize(
     "n,dim,T,dtype",
     [(4, 16, 37, torch.float64), (7, 128, 2000, torch.float32), (14, 16384, 21, torch.float64),
-     (16, 65536, 64, torch.float32)],
+     (16, 65536, 64, torch.float32), (14, 16384, 1, torch.float64),
+     (14, 16384, 33, torch.float64), (14, 16384, 2049, torch.float64),
+     (1, 16, 21, torch.float64), (1, 16, 2049, torch.float32)],
 )
-def test_zexp_kernel_matches_plain(cuda_device, n, dim, T, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(n * dim + T)
-    re, im = (torch.randn(dim, T, generator=gen, device=cuda_device, dtype=dtype)
-              for _ in range(2))
-    dims = (2,) * (n - 1) + (dim >> (n - 1),)
-    signs = torch.as_tensor(zexp.z_sign_table(dims), device=cuda_device)
+def test_zexp_kernel_matches_plain(cuda_device, n, dim, T, dtype, sign_dtype):
+    re, im, signs = _zexp_inputs(cuda_device, n, dim, T, dtype, sign_dtype)
     before = launch_counts["z_expectations_f32"]
     got = zexp.z_expectations_f32(re, im, signs)
     torch.cuda.synchronize()
@@ -324,6 +332,39 @@ def test_zexp_kernel_matches_plain(cuda_device, n, dim, T, dtype):
     want = zexp.z_expectations_f32_plain(re, im, signs)
     assert got.dtype == torch.float32 and got.shape == (n, T)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n,dim,T,dtype", [(14, 16384, 21, torch.float64),
+                                           (14, 16384, 2048, torch.float64),
+                                           (16, 65536, 64, torch.float32)])
+def test_zexp_kernel_two_calls_equal_bits(cuda_device, n, dim, T, dtype):
+    args = _zexp_inputs(cuda_device, n, dim, T, dtype)
+    assert torch.equal(zexp.z_expectations_f32(*args), zexp.z_expectations_f32(*args))
+
+
+def test_zexp_kernel_alternating_shapes_on_one_stream(cuda_device):
+    # each call's last block resets the merge counters it used: calls of
+    # other plans on the same stream (and so the same counters) stay right
+    cases = [_zexp_inputs(cuda_device, 14, 16384, 21, torch.float64, seed=1),
+             _zexp_inputs(cuda_device, 16, 65536, 64, torch.float32, seed=2),
+             _zexp_inputs(cuda_device, 14, 16384, 2048, torch.float64, seed=3)]
+    wants = [zexp.z_expectations_f32_plain(*c) for c in cases]
+    for k in range(9):
+        got = zexp.z_expectations_f32(*cases[k % 3])
+        want = wants[k % 3]
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_zexp_kernel_counts_one_launch_per_call(cuda_device):
+    args = _zexp_inputs(cuda_device, 14, 16384, 21, torch.float64)
+    before = launch_counts["z_expectations_f32"]
+    for _ in range(5):
+        zexp.z_expectations_f32(*args)
+    torch.cuda.synchronize()
+    assert launch_counts["z_expectations_f32"] == before + 5
+    empty = zexp.z_expectations_f32(args[0][:, :0], args[1][:, :0], args[2])
+    assert empty.shape == (14, 0)
+    assert launch_counts["z_expectations_f32"] == before + 5  # nothing to launch
 
 
 def test_zexp_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):

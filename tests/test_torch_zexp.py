@@ -8,6 +8,13 @@ equal element for element; the plain version within 1e-5 absolute of the
 JAX kernel and of a float64 numpy reference on normalised states (the JAX
 test's bar: the JAX kernel sums the float32 products in float32, the plain
 version in float64, rounding once).
+
+The CUDA kernel's launch plan (``zexp_launch_plan``, pure Python) is checked
+here too: every column in one tile, the row slices a partition, two blocks
+per SM at the n14 shapes, the workspace its size; and a float64 emulation of
+the kernel's split summation under the plan (slice sums, cluster sums in
+rank order, the clusters' partials in order, one rounding) is held within
+1e-5 of the largest output of the plain version and of the JAX function.
 """
 
 import jax.numpy as jnp
@@ -68,3 +75,95 @@ def test_wrapper_rejects_malformed_input():
         zexp.z_expectations_f32(re, re[:8], signs)
     with pytest.raises(ValueError):
         zexp.z_expectations_f32(re[:8], re[:8], signs)
+
+
+# --- the CUDA kernel's launch plan and its split summation, on the CPU ------
+
+#: (n, dim, T, itemsize): the smoke's shapes, the route's, a wide-site one
+#: and ragged ones (T 1, 33, 2049; dim 16)
+PLAN_SHAPES = [(14, 16384, 21, 8), (14, 16384, 2048, 8), (7, 128, 20000, 4), (4, 16, 37, 8),
+               (16, 65536, 64, 4), (14, 16384, 1, 8), (14, 16384, 33, 8), (14, 16384, 2049, 8),
+               (4, 16, 1, 8), (4, 16, 33, 4), (1, 16, 2049, 4), (16, 4096, 128, 8)]
+
+
+def _column_ranges(plan):
+    """Columns of each block column tile, as the kernel indexes them."""
+    w = plan.tile_cols
+    return [(i * w, min(plan.T, (i + 1) * w)) for i in range(plan.col_tiles)]
+
+
+def _row_ranges(plan):
+    """Rows of each row slice, as the kernel indexes them (cut at dim)."""
+    r = plan.slice_rows
+    return [(min(plan.dim, s * r), min(plan.dim, (s + 1) * r)) for s in range(plan.row_slices)]
+
+
+@pytest.mark.parametrize("n,dim,T,itemsize", PLAN_SHAPES)
+def test_launch_plan_covers_every_output_once(n, dim, T, itemsize):
+    plan = zexp.zexp_launch_plan(n, dim, T, itemsize)
+    cols = [c for a, b in _column_ranges(plan) for c in range(a, b)]
+    assert cols == list(range(T))  # every column in exactly one tile
+    ranges = [r for r in _row_ranges(plan) if r[1] > r[0]]
+    assert ranges[0][0] == 0 and ranges[-1][1] == dim
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # slices partition [0, dim)
+    assert all(a == b == dim for a, b in _row_ranges(plan)[len(ranges):])  # then only empty ones
+    assert plan.threads <= 128 and plan.tile_cols <= 128
+    assert plan.cols in (1, 2) and (plan.cols == 1 or T % 2 == 0)
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.row_slices % plan.cluster == 0
+    assert plan.row_slices <= 65535
+    if (n, dim) == (14, 16384) and T in (21, 2048):
+        assert plan.blocks >= 264  # two blocks per SM of an H100, at least
+
+
+@pytest.mark.parametrize("n,dim,T,itemsize", PLAN_SHAPES)
+def test_launch_plan_workspace_matches_the_plan(n, dim, T, itemsize):
+    plan = zexp.zexp_launch_plan(n, dim, T, itemsize)
+    stride = plan.tile_stride
+    assert stride % 2 == 0 and n * plan.tile_cols <= stride <= n * plan.tile_cols + 1
+    if plan.partials > 1:
+        assert plan.workspace_doubles == stride * plan.col_tiles * plan.partials
+        assert plan.counters == plan.col_tiles
+    else:
+        assert plan.workspace_doubles == plan.counters == 0
+
+
+def test_launch_plan_vector_width_follows_alignment():
+    assert zexp.zexp_launch_plan(14, 16384, 2048, 8).cols == 2
+    assert zexp.zexp_launch_plan(14, 16384, 2048, 8, align=8).cols == 1
+    assert zexp.zexp_launch_plan(7, 128, 20000, 4, align=8).cols == 2
+    assert zexp.zexp_launch_plan(7, 128, 20000, 4, align=4).cols == 1
+    with pytest.raises(ValueError):
+        zexp.zexp_launch_plan(17, 16, 4, 8)
+
+
+def _split_sum(re, im, signs, plan):
+    """float64 emulation of the kernel's summation under ``plan``: each
+    slice's sums over its rows, each cluster's sum of its slices in rank
+    order, the clusters' partials added in order from 0.0, rounded once to
+    float32."""
+    p2 = (re * re + im * im).astype(np.float32).astype(np.float64)
+    s32 = signs.astype(np.float32).astype(np.float64)
+    parts = [s32[:, a:b] @ p2[a:b] for a, b in _row_ranges(plan)]
+    c = plan.cluster
+    clusters = [sum(parts[k * c + 1:(k + 1) * c], parts[k * c]) for k in range(plan.partials)]
+    total = np.zeros_like(clusters[0])
+    for x in clusters:
+        total = total + x
+    return total.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,dim,T,dtype", [(14, 16384, 21, np.float64),
+                                           (7, 128, 2000, np.float32)])
+def test_split_summation_matches_plain_and_reference(n, dim, T, dtype):
+    rng = np.random.default_rng(n * dim + T)
+    re, im = (rng.standard_normal((dim, T)).astype(dtype) for _ in range(2))
+    signs = zexp.z_sign_table((2,) * n)
+    plan = zexp.zexp_launch_plan(n, dim, T, np.dtype(dtype).itemsize)
+    got = _split_sum(re, im, signs, plan)
+    plain = zexp.z_expectations_f32_plain(torch.as_tensor(re), torch.as_tensor(im),
+                                          torch.as_tensor(signs)).numpy()
+    want = np.asarray(jpk.z_expectations_f32(jnp.asarray(re), jnp.asarray(im), jnp.asarray(signs),
+                                             interpret=True))
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-5 * scale
+    assert np.abs(got - want).max() <= 1e-5 * scale
