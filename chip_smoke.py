@@ -21,10 +21,15 @@ Phases, each printing one line as it finishes:
      yardsticks (the same 72 limb-pair products as 12 torch._int_mm calls
      without the carry; a float64 matmul of the same shape), the eager
      call's time and the plain version's;
-  5. ext_obs_diagonals_int8 against its plain version, bit for bit, at a
-     ragged small shape, at (15, 8192, 1024) and at the n12 advance's shape
+  5. ext_obs_diagonals_int8 against its plain version, bit for bit, at two
+     ragged small shapes, at (15, 8192, 1024) and at the n12 advance's shape
      (15, 8192, 20480), on random canonical limbs with limb 0 at its full
-     range, with CUDA-event timings of the kernel and the plain version;
+     range, with device times per call (CUDA-graph replay) of the kernel and
+     of its earlier SIMT design (experiments/torch_ext_obs_simt.cu, built
+     beside the kernels, timed in turns with it), the eager call's time, the
+     plain version's, and the least-time bound (bytes at the HBM rate or the
+     operations at the int8 tensor-core rate) beside the int32 and __dp4a
+     figures;
   6. z_expectations_f32 against its plain version on the card (both sum
      the same float32 products in float64), at the JAX test's ragged shape
      (4 sites, dim 16, T 37, float64), at one eig32 model's state block
@@ -93,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 WATCHDOG_S = 600
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -308,10 +314,14 @@ LIMB_SHAPES = {
 #: launches of each main-path shape in one extp apply
 LIMB_PER_APPLY = {"HL": 1, "cross stage 1": 2, "cross stage 2": 2, "R": 1}
 
-#: ext_obs_diagonals_int8 shapes (L, dim, T): a ragged small one, a (dim
-#: 8192) check, and the n12 advance's one launch (40 blocks of 512 columns);
-#: the last one is the main path's, reported in the kernels line
-EXT_OBS_SHAPES = ((15, 64, 200), (15, 8192, 1024), (15, 8192, 40 * 512))
+#: ext_obs_diagonals_int8 shapes (L, dim, T): ragged small ones (staged a
+#: byte at a time; dim 16 below one 128-row tile), a (dim 8192) check, and
+#: the n12 advance's one launch (40 blocks of 512 columns); the last one is
+#: the main path's, reported in the kernels line
+EXT_OBS_SHAPES = ((15, 16, 33), (15, 64, 200), (15, 8192, 1024), (15, 8192, 40 * 512))
+#: the SIMT design kernel 3 had before its tensor-core redesign, built beside
+#: the port's kernels and timed in phase 5 against the current one
+EXT_OBS_SIMT_SRC = os.path.join("experiments", "torch_ext_obs_simt.cu")
 
 
 def random_limbs(shape, gen):
@@ -509,9 +519,56 @@ def oracle_result(proc, rx, name: str):
     return rows, sec, nnz
 
 
-def check_ext_obs(shape, peaks, seed: int, reps: int = 10, plain_reps: int = 3) -> dict:
+def build_ext_obs_simt() -> tuple[ctypes.CDLL, float]:
+    """Build the earlier SIMT design of kernel 3 (EXT_OBS_SIMT_SRC) with nvcc
+    into a temporary directory; (library, seconds)."""
+    from quantumsimulations_tpu_torch.kernels._build import NVCC_FLAGS, nvcc_path
+
+    t0 = time.perf_counter()
+    out = os.path.join(tempfile.mkdtemp(prefix="qst_ext_obs_simt_"), "libext_obs_simt.so")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", out,
+                           os.path.join(REPO, EXT_OBS_SIMT_SRC)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {EXT_OBS_SIMT_SRC}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    lib.qst_ext_obs_diagonals.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.qst_ext_obs_diagonals.restype = ctypes.c_int
+    return lib, time.perf_counter() - t0
+
+
+def ext_obs_bounds(shape, R: int, n_pairs: int, peaks) -> dict:
+    """Least times of ext_obs_diagonals_int8 at one (L, dim, T) shape: the
+    limbs read once and the sums written once over the HBM rate; the
+    operations the function needs (per limb pair, column and row the product
+    Rj*Ri + Ij*Ii, its norm and per-site z sums, and x and y over each site's
+    level pairs; a multiply-add is two operations) over the int8 tensor-core
+    rate.  The bound is the larger of those two.  The same operations over
+    the int32 CUDA-core rate and at four int8 multiply-adds per int32
+    instruction (`__dp4a`, an assumed issue rate) are given beside it."""
+    L, dim, T = shape
+    n = dim.bit_length() - 1
+    q = 11
+    ops = float(n_pairs) * T * dim * (4 + 1 + n + 4 * n)
+    nbytes = 2.0 * q * dim * T + 4.0 * q * R * T
+    int32_rate = peaks[1] * _INT32_SHARE_OF_F32
+    t_bytes, t_ops = nbytes / peaks[3] * 1e3, ops / peaks[2] * 1e3
+    return {
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "bytes_ms": t_bytes, "int8_tensor_core_ms": t_ops,
+        "int32_cuda_core_ms": max(ops / int32_rate * 1e3, t_bytes),
+        "dp4a_ms": max(ops / (4 * int32_rate) * 1e3, t_bytes),
+        "gop": ops / 1e9, "cost_estimate_gop": float(n_pairs) * dim * T * (6 + 10 * n) / 1e9,
+        "mbytes": nbytes / 1e6,
+    }
+
+
+def check_ext_obs(shape, peaks, seed: int, simt, plain_reps: int = 3) -> dict:
     """ext_obs_diagonals_int8 vs its plain version at one (L, dim, T) shape,
-    bit for bit, with timings and the bound."""
+    bit for bit, with device times per call (CUDA-graph replay) of the kernel
+    and of the earlier SIMT design (``simt``, the library of
+    build_ext_obs_simt, in turns with the kernel), the eager call's time, the
+    plain version's and the bounds."""
     import torch
 
     from quantumsimulations_tpu_torch.dynamics.expm_propagator import _EXT_OBS_Q, _EXT_PAIRS
@@ -539,31 +596,37 @@ def check_ext_obs(shape, peaks, seed: int, reps: int = 10, plain_reps: int = 3) 
         raise AssertionError(f"ext_obs_diagonals_int8 {shape}: {int((out != ref).sum())} sums "
                              "differ from the plain version")
     max_abs_err = float((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
-    ms = cuda_ms(lambda: ext_obs_diagonals_int8(S_re, S_im, jj, ii, _EXT_OBS_Q), reps=reps)
-    plain_ms = cuda_ms(lambda: ext_obs_diagonals_plain(S_re, S_im, jj, ii, _EXT_OBS_Q),
-                       reps=plain_reps, warmup=1)
 
     L, dim, T = shape
-    n = dim.bit_length() - 1
-    P, R = len(jj), out.shape[1]
-    # operations the function needs per pair and column: prod = Rj*Ri + Ij*Ii
-    # on every row (2 multiply-adds), its norm and per-site z sums (1 + n
-    # adds per row), x and y over the dim/2 level pairs of each site (4
-    # multiply-adds per level pair); a multiply-add is two operations
-    ops = float(P) * T * dim * (4 + 1 + n + 4 * n)
-    nbytes = 2.0 * _EXT_OBS_Q * dim * T + 4.0 * _EXT_OBS_Q * R * T
-    int32_peak = peaks[1] * _INT32_SHARE_OF_F32
-    t_ops, t_bytes = ops / int32_peak * 1e3, nbytes / peaks[3] * 1e3
+    n, R = dim.bit_length() - 1, out.shape[1]
+
+    def old():
+        o = torch.empty_like(out)
+        rc = simt.qst_ext_obs_diagonals(S_re.data_ptr(), S_im.data_ptr(), o.data_ptr(), L, dim, T,
+                                        n, R, _EXT_OBS_Q, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"SIMT ext_obs kernel: CUDA error {rc}")
+        return o
+
+    if not torch.equal(old(), ref):
+        raise AssertionError(f"the SIMT ext_obs kernel {shape} differs from the plain version")
+    kernel = lambda: ext_obs_diagonals_int8(S_re, S_im, jj, ii, _EXT_OBS_Q)  # noqa: E731
+    big = T > 4096
+    n_graph = 5 if big else 10
+    times = {"kernel": [], "simt": []}
+    for name in ("kernel", "simt", "simt", "kernel"):
+        times[name].append(graph_ms(kernel if name == "kernel" else old, n=n_graph, reps=3))
     return {
         "shape": list(shape),
         "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "gop": ops / 1e9,
-        "cost_estimate_gop": float(P) * dim * T * (6 + 10 * n) / 1e9,
-        "mbytes": nbytes / 1e6,
+        "ms": min(times["kernel"]),
+        "ms_turns": times["kernel"],
+        "call_ms": cuda_ms(kernel, reps=5 if big else 10),
+        "simt_ms": min(times["simt"]),
+        "simt_ms_turns": times["simt"],
+        "plain_ms": cuda_ms(lambda: ext_obs_diagonals_plain(S_re, S_im, jj, ii, _EXT_OBS_Q),
+                            reps=1 if big else plain_reps, warmup=1),
+        **ext_obs_bounds(shape, R, len(jj), peaks),
     }
 
 
@@ -1061,6 +1124,8 @@ def main() -> int:
         f"{peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
+    side = ThreadPoolExecutor(max_workers=1)  # kernel 3's SIMT design, built meanwhile
+    simt_build = side.submit(build_ext_obs_simt)
     built = build_all(extra_flags=("-Xptxas", "-v"))
     for kname, (out, sec) in built.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
@@ -1100,15 +1165,21 @@ def main() -> int:
     oracles = {n: start_oracle(ctx, n) for n in (13, 12)}
 
     obs = {}
+    simt, simt_s = simt_build.result()
+    say(f"      built {EXT_OBS_SIMT_SRC} (kernel 3's SIMT design, for phase 5) in {simt_s:.2f} s")
     for i, shape in enumerate(EXT_OBS_SHAPES):
-        big = shape[2] > 4096
-        r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, reps=3 if big else 10,
-                                       plain_reps=1 if big else 3)
-        say(f"[5/14] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['gop']:.1f} G int32 operations, the JAX cost estimate "
-            f"counts {r['cost_estimate_gop']:.1f} G)")
+        r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
+        say(f"[5/14] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
+            f"call: kernel {r['ms']:.4f}, SIMT design {r['simt_ms']:.4f} (same call, in turns: "
+            f"{r['ms_turns']}, {r['simt_ms_turns']}); eager call {r['call_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{r['mbytes']:.0f} MB at HBM {r['bytes_ms']:.4f}, {r['gop']:.1f} G operations at the "
+            f"int8 tensor-core rate {r['int8_tensor_core_ms']:.4f}), {r['bound_ms'] / r['ms']:.1%} "
+            f"of it; the same operations on the int32 CUDA cores {r['int32_cuda_core_ms']:.4f} ms, "
+            f"at the __dp4a rate {r['dp4a_ms']:.4f} ms (the JAX cost estimate counts "
+            f"{r['cost_estimate_gop']:.1f} G)")
     at_path = obs[EXT_OBS_SHAPES[-1]]
+    side.shutdown()
 
     zexp = {}
     for i, zshape in enumerate(ZEXP_SHAPES):
@@ -1345,6 +1416,16 @@ def main() -> int:
             "bound_by": at_path["bound_by"],
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes the per-site limb-pair sums",
+            "timing": "ms, simt_ms: device time per call (CUDA-graph replay, the better of two "
+                      "turns); call_ms: one eager call under CUDA events (host work included); "
+                      "plain_ms: eager",
+            "call_ms": at_path["call_ms"],
+            "simt_ms": at_path["simt_ms"],
+            "simt_source": EXT_OBS_SIMT_SRC,
+            "bounds_ms": {"bytes_at_hbm": at_path["bytes_ms"],
+                          "int8_tensor_cores": at_path["int8_tensor_core_ms"],
+                          "int32_cuda_cores": at_path["int32_cuda_core_ms"],
+                          "dp4a": at_path["dp4a_ms"]},
             "shapes": {str(k): v for k, v in obs.items()},
             "n12": n12,
         },

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..ops.embed import OperatorSum
+from ..ops.ext_obs import KERNEL_MAX_SITES
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
 
@@ -300,7 +301,9 @@ def expm_traces_assembled_ext(
     ``fused_obs`` (default: all local dims 2 and block % 128 == 0, as the
     JAX package picks it) takes the observables from the hand-written
     kernel over each advance chunk's stacked states; otherwise from
-    :func:`_ext_site_obs` per block.  With ``ckpt_dir`` set, the advance
+    :func:`_ext_site_obs` per block.  The kernel holds dim <= 8192 (the
+    "auto" range of the route); above it fused observables raise at once,
+    on every device.  With ``ckpt_dir`` set, the advance
     snapshots its exact int8 limb state and the rows computed so far every
     ``ckpt_every_blocks`` blocks (dynamics/checkpoint.py, the JAX package's
     file format and fingerprint), and a rerun with the same arguments
@@ -331,6 +334,13 @@ def expm_traces_assembled_ext(
         fused_obs = all(d == 2 for d in dims) and block % 128 == 0
     elif fused_obs and not (all(d == 2 for d in dims) and block % 128 == 0):
         raise ValueError("fused_obs=True needs all-spin-1/2 dims and block % 128 == 0")
+    if fused_obs and dim > 1 << KERNEL_MAX_SITES:
+        # checked before the step-operator build, which takes minutes there
+        raise ValueError(
+            f"the ext route's fused observables hold one column's limbs in the card's shared "
+            f"memory: dim <= {1 << KERNEL_MAX_SITES} (got dim={dim}); above it \"auto\" takes "
+            f"\"cheb_step\", or pass fused_obs=False"
+        )
     adv_chunk = min(_EXT_ADV_CHUNK, n_blocks)
     if ckpt_dir:
         adv_chunk = min(adv_chunk, max(1, ckpt_every_blocks))

@@ -21,12 +21,15 @@ in any order under the headroom assert, so the kernel, the plain version and
 the Pallas kernel agree bit for bit.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/ext_obs_diagonals.cu`` (its header gives the design and the bound);
-on a CPU tensor it runs :func:`ext_obs_diagonals_plain`.  A CUDA tensor never
-takes the plain version: the kernel launches or the wrapper raises.  The CUDA
-kernel is compiled for the full triangle of pairs (every (j, s - j) with
-s < n_diag, the tables ``_ext_obs_pairs`` builds), in any order, with
-n_diag <= 11 and L >= n_diag; the wrapper raises for other tables.
+``csrc/ext_obs_diagonals.cu`` (int8 tensor-core Grams, one column per block;
+its header gives the design and the bound); on a CPU tensor it runs
+:func:`ext_obs_diagonals_plain`.  A CUDA tensor never takes the plain
+version: the kernel launches or the wrapper raises.  The CUDA kernel is
+compiled for the full triangle of pairs (every (j, s - j) with s < n_diag,
+the tables ``_ext_obs_pairs`` builds), in any order, with n_diag <= 11,
+L >= n_diag and dim <= 8192 (a block holds one column's limbs in shared
+memory; the ext route's dims); the wrapper raises for other tables and
+larger dims.
 
 Parameters kept for call-site compatibility with the JAX package:
 ``t_tile`` (a no-op: the CUDA kernel masks a ragged T, so T need not be a
@@ -44,6 +47,10 @@ from ..kernels import launch_counts
 
 #: largest n_diag the CUDA kernel is compiled for (the JAX package's _EXT_OBS_Q)
 KERNEL_MAX_DIAG = 11
+#: largest n_sites of the CUDA kernel: a block holds one column's limbs in
+#: shared memory, 23 planes of dim + 16 bytes (189 KB at dim 8192, the ext
+#: route's largest)
+KERNEL_MAX_SITES = 13
 #: columns per chunk of the plain version
 _PLAIN_COLS = 2048
 
@@ -172,5 +179,10 @@ def ext_obs_diagonals_int8(
         raise ValueError(
             f"the CUDA obs kernel takes the full pair triangle of n_diag <= "
             f"{KERNEL_MAX_DIAG} diagonals with L >= n_diag (got n_diag={n_diag}, L={L})"
+        )
+    if n_sites > KERNEL_MAX_SITES:
+        raise ValueError(
+            f"the CUDA obs kernel holds one column's limbs in shared memory: dim <= "
+            f"{1 << KERNEL_MAX_SITES} (got dim={dim})"
         )
     return _launch(S_re, S_im, n_diag, L, dim, T, n_sites, R)

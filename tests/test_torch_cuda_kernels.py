@@ -247,16 +247,66 @@ def _ext_limbs(shape, gen, device):
     return x.to(torch.int8).contiguous()
 
 
-@pytest.mark.parametrize("shape", [(15, 64, 200), (15, 256, 384), (11, 32, 1), (15, 2048, 130)])
-def test_ext_obs_kernel_matches_plain(cuda_device, shape):
-    gen = torch.Generator(device=cuda_device).manual_seed(shape[1] + shape[2])
-    S_re, S_im = _ext_limbs(shape, gen, cuda_device), _ext_limbs(shape, gen, cuda_device)
+def _ext_pairs(nd):
+    return tuple(zip(*[(j, s - j) for s in range(nd) for j in range(s + 1)]))
+
+
+# (L, dim, T, n_diag, every limb at +-33): n_sites 1-13 at a narrow T (33:
+# staged a byte at a time; 32: staged by the TMA), T 1, 33, 130 and 2049,
+# n_diag < 11 with L = n_diag, and limbs at the headroom's worst case
+_EXT_CASES = (
+    [(15, 1 << n, 33, 11, False) for n in range(1, 14)]
+    + [(15, 1 << n, 32, 11, False) for n in range(1, 14)]
+    + [(15, 2048, T, 11, False) for T in (1, 33, 130, 2049)]
+    + [(15, 64, 200, 11, False), (15, 256, 384, 11, False), (11, 32, 1, 11, False)]
+    + [(nd, 1 << n, 48, nd, False) for nd, n in ((1, 5), (4, 9), (7, 12), (10, 13))]
+    + [(15, 1 << n, T, 11, True) for n, T in ((2, 33), (8, 64), (13, 130), (13, 32))]
+)
+
+
+@pytest.mark.parametrize("L,dim,T,nd,extreme", _EXT_CASES)
+def test_ext_obs_kernel_matches_plain(cuda_device, L, dim, T, nd, extreme):
+    gen = torch.Generator(device=cuda_device).manual_seed(dim + T + nd)
+    if extreme:
+        S_re, S_im = ((torch.randint(0, 2, (L, dim, T), generator=gen, device=cuda_device) * 66 - 33)
+                      .to(torch.int8).contiguous() for _ in range(2))
+    else:
+        S_re, S_im = (_ext_limbs((L, dim, T), gen, cuda_device) for _ in range(2))
+    jj, ii = _ext_pairs(nd)
     before = launch_counts["ext_obs_diagonals_int8"]
-    got = eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
+    got = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
     torch.cuda.synchronize()
     assert launch_counts["ext_obs_diagonals_int8"] == before + 1
-    want = eo.ext_obs_diagonals_plain(S_re, S_im, JJ, II, 11)
+    want = eo.ext_obs_diagonals_plain(S_re, S_im, jj, ii, nd)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(15, 8, 33), (15, 1024, 64), (15, 8192, 160)])
+def test_ext_obs_kernel_two_calls_equal_bits(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    S_re, S_im = _ext_limbs(shape, gen, cuda_device), _ext_limbs(shape, gen, cuda_device)
+    first = eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
+    second = eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
+    assert torch.equal(first, second)
+
+
+def test_ext_obs_kernel_counts_one_launch_per_call(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    shapes = [(15, 16, 33), (15, 4096, 48), (15, 16, 33)]
+    stacks = [(_ext_limbs(s, gen, cuda_device), _ext_limbs(s, gen, cuda_device)) for s in shapes]
+    before = launch_counts["ext_obs_diagonals_int8"]
+    for k, (S_re, S_im) in enumerate(stacks, start=1):
+        eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
+        assert launch_counts["ext_obs_diagonals_int8"] == before + k
+    torch.cuda.synchronize()
+
+
+def test_ext_obs_kernel_rejects_dims_above_8192(cuda_device):
+    S = torch.zeros((11, 1 << 14, 2), dtype=torch.int8, device=cuda_device)
+    before = launch_counts["ext_obs_diagonals_int8"]
+    with pytest.raises(ValueError, match="dim <= 8192"):
+        eo.ext_obs_diagonals_int8(S, S, JJ, II, 11)
+    assert launch_counts["ext_obs_diagonals_int8"] == before
 
 
 def test_ext_obs_kernel_takes_only_the_full_pair_triangle(cuda_device):

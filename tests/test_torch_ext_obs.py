@@ -9,6 +9,9 @@ reduction (``_ext_site_obs``, spin-3/2 rare spins) agree with the JAX
 package's within 1e-13 (tests/test_extprec.py:312-339).
 """
 
+from dataclasses import dataclass
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +109,221 @@ def test_site_obs_matches_reference(dims):
         xyz_f, nr_f = tep._ext_site_obs_fused(torch.from_numpy(S_re), torch.from_numpy(S_im), dims)
         np.testing.assert_allclose(xyz_f.numpy(), xyz_t.numpy(), rtol=0, atol=1e-13)
         np.testing.assert_allclose(nr_f.numpy(), nr_t.numpy(), rtol=0, atol=1e-13)
+
+
+# The CUDA kernel's plan and arithmetic, on the CPU.  The kernel itself runs
+# only on the card (tests/test_torch_cuda_kernels.py); these check the work
+# plan it follows (ext_obs_plan below restates the index formulas of
+# csrc/ext_obs_diagonals.cu::ext_obs_kernel) and its Gram decomposition,
+# emulated in numpy at the level of its mma operands and fragment decoding,
+# against the plain version bit for bit.
+
+#: warps of one CUDA block (THREADS / 32 in the kernel), which share a column
+KERNEL_WARPS = 16
+
+
+@dataclass(frozen=True)
+class ObsUnit:
+    """One unit of the CUDA kernel's work on a column: 32 level pairs of
+    ``site``.  For a stride dr >= 16, level-0 rows in two 16-row chunks at
+    ``a_lo`` and ``a_hi`` and their partners at ``b_lo``, ``b_hi`` (= + dr);
+    for dr < 16 (``b_lo`` is None), the two 32-row blocks at ``a_lo`` and
+    ``a_hi`` (= a_lo + 32), whose level-0 bytes and partners' the kernel
+    compacts into A and B."""
+
+    site: int
+    dr: int
+    a_lo: int
+    a_hi: int
+    b_lo: int | None
+    b_hi: int | None
+
+
+def ext_obs_plan(n_sites: int) -> dict:
+    """The CUDA kernel's work plan for one column, as each block computes
+    it: max(1, dim / 64) units (:class:`ObsUnit`) per site, in site order,
+    each warp a contiguous share of them, and each warp a share of the
+    norm's 32-row blocks (rows 32 q .. 32 q + 31, q < max(1, dim / 32)).
+    Positions at and above dim read the kernel's zero padding (a plane holds
+    max(dim, 64) + 16 bytes)."""
+    dim = 1 << n_sites
+    per_site = max(1, dim // 64)
+    units = []
+    for k in range(n_sites):
+        sh = n_sites - 1 - k
+        dr = 1 << sh
+        for u in range(per_site):
+            if dr >= 16:
+                p0, p1 = 32 * u, 32 * u + 16
+                a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1))
+                a1 = ((p1 >> sh) << (sh + 1)) | (p1 & (dr - 1))
+                units.append(ObsUnit(k, dr, a0, a1, a0 + dr, a1 + dr))
+            else:
+                units.append(ObsUnit(k, dr, 64 * u, 64 * u + 32, None, None))
+    n_units, n_blocks, w = len(units), max(1, dim // 32), KERNEL_WARPS
+    return {
+        "dim": dim,
+        "plane_bytes": max(dim, 64) + 16,
+        "units": units,
+        "warp_units": [(i * n_units // w, (i + 1) * n_units // w) for i in range(w)],
+        "norm_blocks": [(i * n_blocks // w, (i + 1) * n_blocks // w) for i in range(w)],
+    }
+
+
+@pytest.mark.parametrize("n_sites", list(range(1, tobs.KERNEL_MAX_SITES + 1)))
+def test_kernel_plan_visits_every_level_pair_and_norm_row_once(n_sites):
+    plan = ext_obs_plan(n_sites)
+    dim, top = plan["dim"], plan["plane_bytes"]
+    for k in range(n_sites):
+        dr = 1 << (n_sites - 1 - k)
+        seen = np.zeros(dim, dtype=np.int64)
+        for u in (u for u in plan["units"] if u.site == k):
+            assert u.dr == dr
+            if u.b_lo is not None:  # chunk pairs: level-0 chunks and their partners
+                assert dr >= 16 and u.b_lo == u.a_lo + dr and u.b_hi == u.a_hi + dr
+                a = np.r_[u.a_lo:u.a_lo + 16, u.a_hi:u.a_hi + 16]
+                assert (a + dr).max() < top  # reads stay inside the padded plane
+            else:  # two 32-row blocks, pairs inside each 16-byte row
+                assert dr < 16 and u.a_hi == u.a_lo + 32 and u.a_lo % 64 == 0
+                blk = np.arange(u.a_lo, u.a_lo + 64)
+                a = blk[(blk & dr) == 0]
+                assert blk.max() < top
+            real = a[a < dim]
+            assert np.all((real & dr) == 0)  # level-0 rows only; partner = a + dr
+            assert np.all(a[a >= dim] + dr >= dim)  # padding pairs with padding
+            np.add.at(seen, real, 1)
+        level0 = (np.arange(dim) & dr) == 0
+        np.testing.assert_array_equal(seen, level0.astype(np.int64))
+    rows = np.zeros(dim, dtype=np.int64)
+    for lo, hi in plan["norm_blocks"]:
+        for q in range(lo, hi):
+            r = np.arange(32 * q, 32 * q + 32)
+            np.add.at(rows, r[r < dim], 1)
+    np.testing.assert_array_equal(rows, 1)
+
+
+@pytest.mark.parametrize("n_sites", [1, 5, 9, 13])
+def test_kernel_plan_splits_units_evenly_over_warps(n_sites):
+    plan = ext_obs_plan(n_sites)
+    ranges, n_units = plan["warp_units"], len(plan["units"])
+    assert len(ranges) == KERNEL_WARPS and ranges[0][0] == 0 and ranges[-1][1] == n_units
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1
+    sites = [{u.site for u in plan["units"][lo:hi]} for lo, hi in ranges]
+    assert max(len(s) for s in sites) <= 3  # a warp reduces into at most three sites
+
+
+def test_kernel_plan_mirror_restates_the_kernel_source():
+    # ext_obs_plan's constants and split formulas, as they stand in the .cu
+    src = (Path(tobs.__file__).parent.parent / "csrc" / "ext_obs_diagonals.cu").read_text()
+    for line in (f"constexpr int THREADS = {32 * KERNEL_WARPS};",
+                 "constexpr int WARPS = THREADS / 32;",
+                 "int site_units(int dim) { return max(1, dim / 64); }",
+                 "const int u_begin = warp * total / WARPS, u_end = (warp + 1) * total / WARPS;",
+                 "const int nb = max(1, dim / 32);",
+                 "for (int u = warp * nb / WARPS; u < (warp + 1) * nb / WARPS; ++u) {",
+                 "const int p0 = 32 * u, p1 = p0 + 16;",
+                 "const int a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1));",
+                 "load_blk(b, base, ln, a0 + dr, a1 + dr);",
+                 "load_blk(x, base, ln, 64 * u, 64 * u + 16);",
+                 "load_blk(y, base, ln, 64 * u + 32, 64 * u + 48);",
+                 "return (dim > 64 ? dim : 64) + ROW_PAD; }",
+                 "constexpr int ROW_PAD = 16;"):
+        assert line in src, line
+
+
+_F_ROWS = [("R", j) for j in range(8)] + [("I", j) for j in range(8)]
+_H_ROWS = [("R", 8), ("R", 9), ("R", 10), ("I", 8), ("I", 9), ("I", 10), ("R", 3), ("R", 7)]
+_G_ROWS = [("R", j) for j in range(4)] + [("I", j) for j in range(4)]
+
+
+def _emulate_kernel_column(R, I, n_sites, nd):
+    """One column's (nd, 3 n + 1) sums as the CUDA kernel forms them: R, I
+    are (11, plane_bytes) int64 planes (zero at limbs >= nd and rows >= dim)."""
+    plan = ext_obs_plan(n_sites)
+
+    def blk(lo, hi):
+        k = np.r_[lo:lo + 16, hi:hi + 16]
+        return [np.stack([(R if p == "R" else I)[j, k] for p, j in spec])
+                for spec in (_F_ROWS, _H_ROWS, _G_ROWS)]
+
+    g = np.arange(8)[:, None]
+
+    def self_gram(a, x):  # A rows 8-10: R8..10 against R; rows 11-13: I8..10 against I
+        a_r = np.vstack([a[0][:8], np.where(g < 3, a[1], 0)])
+        a_i = np.vstack([a[0][8:], np.where((g >= 3) & (g < 6), a[1], 0)])
+        return a_r @ x[0][:8].T + a_i @ x[0][8:].T
+
+    def add_sym(c, diag):
+        for m in range(14):
+            j = m if m < 11 else m - 3
+            for col in range(8):
+                if j + col < nd:
+                    diag[j + col] += (2 if j >= 8 else 1) * c[m, col]
+
+    xs, ys = np.zeros((n_sites, nd), np.int64), np.zeros((n_sites, nd), np.int64)
+    gaa, norm = np.zeros((n_sites, nd), np.int64), np.zeros(nd, np.int64)
+    for u in plan["units"]:
+        if u.b_lo is not None:
+            a = x = blk(u.a_lo, u.a_hi)
+            b = blk(u.b_lo, u.b_hi)
+        else:  # the kernel compacts the level-0 bytes of two blocks into one
+            # K of 32; the same pairs, masked block by block here
+            kk = np.arange(32)
+            xs_ = [blk(lo, lo + 16) for lo in (u.a_lo, u.a_hi)]
+            a = [np.hstack([m * ((kk & u.dr) == 0) for m in ms]) for ms in zip(*xs_)]
+            b = [np.hstack([m[:, kk ^ u.dr] for m in ms]) for ms in zip(*xs_)]
+            x = a
+        c1, c2 = a[0] @ b[0][:8].T, a[0] @ b[0][8:].T
+        z8 = np.zeros_like(a[1])
+        c3 = np.vstack([a[1], z8]) @ b[2].T + np.vstack([z8, b[1]]) @ a[2].T
+        for m in range(16):
+            for col in range(8):
+                s = m % 8 + col
+                if s < nd:
+                    if m < 8:
+                        xs[u.site, s] += c1[m, col]
+                        ys[u.site, s] += c2[m, col]
+                    else:
+                        ys[u.site, s] -= c1[m, col]
+                        xs[u.site, s] += c2[m, col]
+                mm = m % 8
+                s = 8 + mm % 3 + col % 4
+                if mm < 6 and s < nd:
+                    h_im, g_im = mm >= 3, col >= 4
+                    a_im, b_im = (h_im, g_im) if m < 8 else (g_im, h_im)
+                    if a_im == b_im:
+                        xs[u.site, s] += c3[m, col]
+                    else:
+                        ys[u.site, s] += c3[m, col] if b_im else -c3[m, col]
+        add_sym(self_gram(a, x), gaa[u.site])
+    for lo, hi in plan["norm_blocks"]:
+        for q in range(lo, hi):
+            x = blk(32 * q, 32 * q + 16)
+            add_sym(self_gram(x, x), norm)
+    rows = np.zeros((nd, 3 * n_sites + 1), np.int64)
+    rows[:, 0:3 * n_sites:3], rows[:, 1:3 * n_sites:3] = xs.T, ys.T
+    rows[:, 2:3 * n_sites:3] = (2 * gaa - norm[None, :]).T
+    rows[:, 3 * n_sites] = norm
+    return rows
+
+
+@pytest.mark.parametrize("L,dim,T,nd", [(15, 2, 3, 11), (15, 16, 5, 11), (11, 64, 3, 11),
+                                        (7, 128, 2, 7), (15, 256, 2, 11), (15, 32, 4, 4)])
+def test_kernel_gram_decomposition_equals_plain(L, dim, T, nd):
+    rng = np.random.default_rng(dim + T + nd)
+    x = rng.integers(-16, 17, (2, L, dim, T))
+    x[:, 0] = rng.integers(-33, 34, (2, dim, T))
+    x[0, :, 0, 0], x[1, :, -1, -1] = 33, -33  # every limb at its extremes somewhere
+    S_re, S_im = (torch.from_numpy(v.astype(np.int8)) for v in x)
+    jj, ii = zip(*[(j, s - j) for s in range(nd) for j in range(s + 1)])
+    want = tobs.ext_obs_diagonals_plain(S_re, S_im, jj, ii, nd).numpy()
+    n = dim.bit_length() - 1
+    top = ext_obs_plan(n)["plane_bytes"]
+    for t in range(T):
+        R, I = (np.zeros((11, top), np.int64) for _ in range(2))
+        R[:nd, :dim], I[:nd, :dim] = x[0, :nd, :, t], x[1, :nd, :, t]
+        got = _emulate_kernel_column(R, I, n, nd)
+        np.testing.assert_array_equal(got, want[:, :3 * n + 1, t])
+        assert not want[:, 3 * n + 1:, t].any()

@@ -77,6 +77,24 @@ def test_fused_obs_needs_spin_half_and_block_multiple_of_128(n4):
         tep.expm_traces_assembled_ext(*_args(mt, TIMES), block=64, fused_obs=True, device="cpu")
 
 
+def test_fused_obs_above_the_kernel_dim_raises_before_the_setup(monkeypatch):
+    # 14 spin-1/2 sites (dim 16384): the CUDA kernel holds dim <= 8192, so the
+    # route refuses fused observables there before the step-operator build
+    def setup(*a, **k):
+        raise AssertionError("the step-operator build ran")
+
+    monkeypatch.setattr(tep, "_ext_host_setup", setup)
+    dims = (2,) * 14
+    psi0 = np.zeros(1 << 14, dtype=np.complex128)
+    for fused in (None, True):
+        with pytest.raises(ValueError, match="dim <= 8192"):
+            tep.expm_traces_assembled_ext(None, psi0, TIMES[:128], dims, 13, 13,
+                                          block=128, fused_obs=fused, device="cpu")
+    with pytest.raises(AssertionError, match="step-operator build"):
+        tep.expm_traces_assembled_ext(None, psi0, TIMES[:128], dims, 13, 13,
+                                      block=128, fused_obs=False, device="cpu")
+
+
 def test_rows_match_reference_eig_at_one_second():
     """The ext rows against the exact eig route on a 1 s horizon."""
     mj, mt = _models(n_sea=4)
