@@ -74,7 +74,28 @@ Phases, each printing one line as it finishes:
      as in phase 6, and once more with a cold L2); and
      the public route ``simulate_rare(solver_method="chebyshev")`` at that
      size, which must give the same rows;
- 14. a JSON line with every kernel's launches and timings.
+ 14. A: the dense "expm" route (``simulate_rare(solver_method="expm")``,
+     complex128) at n_sea=6 on the simulate CLI's production parameters (30
+     s, 20,000 steps), within EXPM_ATOL of the "eig" route on the same
+     parameters, its norm within EXPM_NORM_ATOL;
+ 15. B: ``dopri_propagate_traces`` in the rotating frame on phase A's
+     parameters over DOPRI_T_FINAL (DOPRI_STEPS outputs, atol/rtol
+     DOPRI_TOL), within DOPRI_ATOL of "eig", with its accepted and rejected
+     steps and accepted steps/s;
+ 16. C: ``simulate_lab_frame`` at n_sea=6 with the lab-frame test's scaled
+     frequencies, within LAB_ATOL of a host DOP853 oracle (child process);
+     then the port's simulate CLI on phase A's flags, whose trace.npz must
+     equal phase A's traces bit for bit;
+ 17. D: the n12 workload of phase 11 through ``simulate_rare(solver_method=
+     "expm")`` on cuda, which takes the Ozaki limb-product route, within
+     OZAKI_ATOL of phase 11's "ext" rows, with its stage split and seconds
+     per real (8192)^3 product against the int8 tensor-core bound; then the
+     dense complex128 route on the same workload, timed, with its error;
+ 18. E: the "limb" tier of the n13 stepper over LIMB_STEPS output steps,
+     within LIMB_ATOL of phase 9's f64 rows, with steps/s, applies/s and
+     the device kernels of one apply (torch.profiler);
+ 19. a JSON line with the solver phases' numbers, and one with every
+     kernel's launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  A watchdog ends the run with exit code 1 after
@@ -150,6 +171,43 @@ N13_DT = 30.0 / 19_999
 N12_DT = 30.0 / 19_999
 N12_STEPS = 20_000
 N12_DETUNING_HZ = 1000.0
+
+#: phases A-E (the solvers added after the kernels): the dense "expm" route
+#: against the "eig" route over the production 30 s.  tests/test_steppers.py
+#: :91-95 holds it to 1e-10 (norm 1e-11) over 51 steps; over 20,000 steps
+#: the rounding of U^128 (amplified 2^(n_sq + 7) by the squarings) adds up
+#: block by block: the JAX package's own expm on this workload is
+#: 2.47581497525573e-08 from its eig route, its norm off by
+#: 3.742884779889266e-09 (experiments/torch_expm_horizon_parity.py, both
+#: packages on the CPU).  The bars hold the port to that record with a factor
+#: 2 of room, as N12_NORM_ATOL does the ext route
+EXPM_ATOL = 5e-8
+EXPM_NORM_ATOL = 8e-9
+#: the simulate CLI's flags of phase A's workload (n_sea = 6, production
+#: physics, 30 s, 20,000 steps; the CLI's defaults otherwise)
+SIM_ARGV = ["--n-sea", "6", "--drive-rare", "--solver", "expm", "--device", "cuda"]
+#: dopri in the rotating frame against eig (tests/test_steppers.py:109-116's
+#: bars at its tolerances atol 1e-12, rtol 1e-11 and its horizon, 0.5 ms
+#: over 51 outputs): the 30 s one takes ~1e9 steps at these tolerances, and
+#: over 1 ms the norm drifted 9.25e-10 against the 1e-9 bar, too close to it
+#: on a card that may round otherwise
+DOPRI_T_FINAL = 5e-4
+DOPRI_STEPS = 51
+DOPRI_TOL = (1e-12, 1e-11)
+DOPRI_ATOL = 1e-8
+DOPRI_NORM_ATOL = 1e-9
+#: the lab frame at n_sea = 6 with tests/test_labframe.py's scaled
+#: frequencies against a DOP853 oracle (its bar, :80)
+LAB_ATOL = 1e-7
+#: the Ozaki "expm" route at n12 against phase 11's "ext" rows: the
+#: reference's own account of this route is ~1e-6 (README.md:121) and 5e-6
+#: grade (BASELINE.md:49)
+OZAKI_ATOL = 1e-5
+#: the "limb" tier of cheb_step at n13 against phase 9's f64 rows
+#: (the tiers agree to float64 rounding, dynamics/cheb_step.py:219 of the
+#: JAX package), over LIMB_STEPS output steps
+LIMB_ATOL = 1e-11
+LIMB_STEPS = 2
 
 #: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
 #: bytes/s, dense TF32 tensor-core FLOP/s, float64 FLOP/s without tensor
@@ -979,8 +1037,290 @@ def n12_ext(oracle) -> dict:
         "limb_pairs": pairs, "guard": EXT_GUARD,
         "norm_dev": norm_dev, "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb,
         "vs_oracle": vs_oracle, "oracle_s": o_sec,
-        "rows_ref": ref[:7], "oracle_rows": o_rows,
+        "rows_ref": ref[:7], "oracle_rows": o_rows, "rows": rows,
     }
+
+
+def sim_params(argv):
+    """The DipolarRareParams the port's simulate CLI runs for ``argv``."""
+    from quantumsimulations_tpu_torch.cli.simulate import build_parser, params_from_args
+
+    return params_from_args(build_parser().parse_args(argv))
+
+
+def timed(fn, *args, **kwargs):
+    """(result, wall seconds) of fn(*args, **kwargs), ending in a device sync."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _max_diff(a: dict, b: dict, keys) -> float:
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max()) for k in keys)
+
+
+def dense_expm() -> dict:
+    """Phase A: ``simulate_rare(solver_method="expm")`` (dense complex128)
+    at n_sea = 6 on the CLI's production parameters, against the "eig"
+    route on the same parameters."""
+    import dataclasses
+
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    params = sim_params(SIM_ARGV)
+    reset_launch_counts()
+    (t, named), wall = timed(simulate_rare, params, device="cuda")
+    launches = dict(launch_counts)
+    (t2, ref), eig_wall = timed(simulate_rare, dataclasses.replace(params, solver_method="eig"),
+                                device="cuda")
+    keys = [k for k in ref if k != "state_norm"]
+    if set(named) != set(ref) or not np.array_equal(t, t2):
+        raise AssertionError(f"expm: keys {sorted(named)} or grid differ from eig's")
+    if any(v.shape != (params.steps,) or not np.isfinite(v).all() for v in named.values()):
+        raise AssertionError("expm: traces not finite of the grid's shape")
+    vs_eig = _max_diff(named, ref, keys)
+    norm_dev = float(np.abs(named["state_norm"] - 1.0).max())
+    if not vs_eig <= EXPM_ATOL:
+        raise AssertionError(f"expm vs eig: {vs_eig:.3e} > {EXPM_ATOL:g}")
+    if not norm_dev <= EXPM_NORM_ATOL:
+        raise AssertionError(f"expm: max |norm - 1| = {norm_dev:.3e} > {EXPM_NORM_ATOL:g}")
+    return {"t": t, "named": named, "wall_s": wall, "eig_wall_s": eig_wall, "vs_eig": vs_eig,
+            "norm_dev": norm_dev, "launches": launches}
+
+
+def dopri_rotating() -> dict:
+    """Phase B: ``dopri_propagate_traces`` in the rotating frame on phase
+    A's parameters over DOPRI_T_FINAL, against the "eig" route."""
+    import dataclasses
+
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.dynamics.dopri import dopri_propagate_traces
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.dynamics.observables import assemble_traces
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+
+    params = dataclasses.replace(sim_params(SIM_ARGV), t_final=DOPRI_T_FINAL, steps=DOPRI_STEPS)
+    model = build_model(params)
+    t = np.linspace(0.0, params.t_final, params.steps)
+    reset_launch_counts()
+    out, wall = timed(dopri_propagate_traces, model.hamiltonian, model.psi0, t, model.dims,
+                      atol=DOPRI_TOL[0], rtol=DOPRI_TOL[1], device="cuda")
+    launches = dict(launch_counts)
+    named = assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective, model.idx_rare)
+    _, ref = simulate_rare(dataclasses.replace(params, solver_method="eig"), device="cuda")
+    vs_eig = _max_diff(named, ref, [k for k in ref if k != "state_norm"])
+    norm_dev = float(np.abs(named["state_norm"] - 1.0).max())
+    if not (vs_eig <= DOPRI_ATOL and norm_dev <= DOPRI_NORM_ATOL):
+        raise AssertionError(f"dopri vs eig {vs_eig:.3e} (bound {DOPRI_ATOL:g}), max |norm - 1| "
+                             f"{norm_dev:.3e} (bound {DOPRI_NORM_ATOL:g})")
+    n_acc, n_rej = out["n_accepted"], out["n_rejected"]
+    return {"wall_s": wall, "n_accepted": n_acc, "n_rejected": n_rej,
+            "accepted_per_s": n_acc / wall, "attempted_ms": 1e3 * wall / (n_acc + n_rej),
+            "vs_eig": vs_eig, "norm_dev": norm_dev, "launches": launches}
+
+
+def labframe_params():
+    """tests/test_labframe.py:12-38's scaled frequencies at n_sea = 6."""
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.models.params import DipolarRareParams
+
+    gamma, B0, f1 = 1.0e5, 1.0, 1.0e3
+    return DipolarRareParams(
+        n_sea=6, gamma_sea=gamma, gamma_rare=gamma * 0.8, B0_sea=B0, B0_rare=B0,
+        B1_sea=2 * np.pi * f1 / gamma, B1_rare=2 * np.pi * f1 / (gamma * 0.8),
+        phi_sea=0.3, phi_rare=1.1, dipolar_scale=1e-7 * 1.054571817e-34 * 7e5,
+        shell_scale=0.282393e-9, t_final=2.0e-3, steps=81, drive_sea=True, drive_rare=True,
+        is_spin_three_half=False, is_center_rare=True,
+    )
+
+
+def labframe_oracle(conn) -> None:
+    """Child process: Iz_sea of the lab-frame H(t) at n_sea = 6 by scipy's
+    DOP853 (rtol 1e-12, atol 1e-14) on the dense operators; sends
+    (Iz_sea, seconds) or an error."""
+    _die_with_parent()
+    try:
+        sys.path.insert(0, REPO)
+        import numpy as np
+        from scipy.integrate import solve_ivp
+
+        from quantumsimulations_tpu_torch.models.dipolar import build_model
+        from quantumsimulations_tpu_torch.models.labframe import build_lab_frame_model
+
+        t0 = time.perf_counter()
+        params = labframe_params()
+        model = build_model(params)
+        Ht, _ = build_lab_frame_model(params)
+        H0 = Ht.H0.to_dense()
+        Vs = [(V.to_dense(), fn) for V, fn in Ht.pieces]
+        dim = H0.shape[0]
+
+        def rhs(tt, y):
+            psi = y[:dim] + 1j * y[dim:]
+            H = H0.copy()
+            for Vd, fn in Vs:
+                H = H + float(fn(tt)) * Vd
+            d = -1j * (H @ psi)
+            return np.concatenate([d.real, d.imag])
+
+        t = np.linspace(0.0, params.t_final, params.steps)
+        sol = solve_ivp(rhs, (0, params.t_final), np.concatenate([model.psi0.real, model.psi0.imag]),
+                        t_eval=t, method="DOP853", rtol=1e-12, atol=1e-14)
+        if not sol.success:
+            raise RuntimeError(sol.message)
+        psis = sol.y[:dim] + 1j * sol.y[dim:]
+        n = len(model.dims)
+        basis = np.arange(dim)
+        iz = sum(0.5 - ((basis >> (n - 1 - j)) & 1) for j in range(model.n_sea_effective))
+        conn.send(("ok", iz @ (np.abs(psis) ** 2), time.perf_counter() - t0, 0))
+    except Exception as exc:  # reported and raised by the parent
+        conn.send(("error", repr(exc), 0.0, 0))
+    finally:
+        conn.close()
+
+
+def labframe_and_cli(lab_oracle, expm_run: dict, tmp: str) -> dict:
+    """Phase C: ``simulate_lab_frame`` at n_sea = 6 against the DOP853
+    oracle; then the port's simulate CLI on phase A's flags, whose
+    trace.npz must equal phase A's traces."""
+    import numpy as np
+
+    from quantumsimulations_tpu_torch.cli.simulate import main as simulate_main
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.labframe import simulate_lab_frame
+
+    reset_launch_counts()
+    (t, lab), wall = timed(simulate_lab_frame, labframe_params(), atol=1e-12, rtol=1e-11,
+                           device="cuda")
+    launches = dict(launch_counts)
+    want, o_sec, _ = oracle_result(*lab_oracle, "lab frame")
+    vs_oracle = float(np.abs(lab["Iz_sea"] - want).max())
+    norm_dev = float(np.abs(lab["state_norm"] - 1.0).max())
+    if not vs_oracle <= LAB_ATOL:
+        raise AssertionError(f"lab frame vs DOP853: {vs_oracle:.3e} > {LAB_ATOL:g}")
+
+    path = os.path.join(tmp, "trace.npz")
+    log = os.path.join(tmp, "simulate_cli.log")
+    with open(log, "w", encoding="utf-8") as f, contextlib.redirect_stdout(f):
+        _, cli_wall = timed(simulate_main, SIM_ARGV + ["-o", path])
+    with np.load(path) as z:
+        cli = {k: z[k] for k in z.files}
+    ref = dict(expm_run["named"], t=expm_run["t"])
+    if set(cli) != set(ref) or not all(np.array_equal(cli[k], ref[k]) for k in ref):
+        raise AssertionError(f"simulate CLI trace differs from phase A's: "
+                             f"{_max_diff(cli, ref, ref) if set(cli) == set(ref) else sorted(cli)}")
+    with open(log, encoding="utf-8") as f:
+        cli_line = f.read().strip().splitlines()[-1]
+    return {"wall_s": wall, "vs_oracle": vs_oracle, "norm_dev": norm_dev, "oracle_s": o_sec,
+            "launches": launches, "cli_wall_s": cli_wall, "cli_line": cli_line}
+
+
+def ozaki_n12(ext_rows, peaks) -> dict:
+    """Phase D: ``simulate_rare(solver_method="expm")`` at n12 on cuda, which
+    routes to the Ozaki limb products, against phase 11's "ext" rows; then
+    the dense complex128 route (``expm_propagate_traces``) on the same
+    workload, timed and held to the same rows for comparison."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
+    from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.dynamics.expm_propagator import expm_propagate_traces
+    from quantumsimulations_tpu_torch.dynamics.observables import assemble_traces
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.ops.extprec import N_LIMBS
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer
+
+    params = dataclasses.replace(n12_params(N12_STEPS), solver_method="expm")
+    timer = StageTimer(device=torch.device("cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (t, named), wall = timed(simulate_rare, params, device="cuda", timer=timer)
+    launches = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stages = timer.as_dict()
+    if "squarings" not in stages:
+        raise AssertionError(f"n12 expm did not take the Ozaki route: {stages}")
+    rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
+    if rows.shape != (7, N12_STEPS) or not np.isfinite(rows).all():
+        raise AssertionError(f"n12 Ozaki: rows not finite of shape (7, {N12_STEPS})")
+    vs_ext = float(np.abs(rows[:6] - ext_rows[:6]).max())
+    norm_dev = float(np.abs(rows[6] - 1.0).max())
+    if not vs_ext <= OZAKI_ATOL:
+        raise AssertionError(f"n12 Ozaki vs ext: {vs_ext:.3e} > {OZAKI_ATOL:g}")
+    n_sq = stages["squarings"]["calls"]
+    dim = 1 << 13
+    pairs = N_LIMBS * (N_LIMBS + 1) // 2
+    product_bound_s = pairs * 2.0 * float(dim) ** 3 / peaks[2]
+
+    model = build_model(params)
+    del named
+    torch.cuda.empty_cache()
+    out, dense_wall = timed(expm_propagate_traces, model.hamiltonian, model.psi0, t, model.dims,
+                            device="cuda")
+    dense = assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective, model.idx_rare)
+    d_rows = np.stack([dense[k] for k in TRACE_ROWS[:7]])
+    return {
+        "wall_s": wall, "stages_s": {k: v["seconds"] for k, v in stages.items()},
+        "stage_calls": {k: v["calls"] for k, v in stages.items()}, "n_sq": n_sq,
+        "s_per_real_product": stages["squarings"]["seconds"] / max(4 * n_sq, 1),
+        "real_product_bound_s": product_bound_s, "limb_pairs": pairs,
+        "vs_ext": vs_ext, "norm_dev": norm_dev, "launches": launches, "peak_gb": peak_gb,
+        "dense_wall_s": dense_wall, "dense_vs_ext": float(np.abs(d_rows[:6] - ext_rows[:6]).max()),
+        "dense_norm_dev": float(np.abs(d_rows[6] - 1.0).max()),
+    }
+
+
+def device_kernels_per_call(fn) -> int | None:
+    """CUDA kernels one call of ``fn`` launches, from a torch.profiler trace
+    (None where the trace holds no device events)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def limb_tier(model, lam: float, f64_rows) -> dict:
+    """Phase E: the "limb" tier of ``chebyshev_step_traces`` at n13 over
+    LIMB_STEPS output steps of the production spacing, against phase 9's
+    f64 rows, with its rates and the device kernels of one apply."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.cheb_step import _ENGINE_CACHE
+    from quantumsimulations_tpu_torch.dynamics.chebyshev import chebyshev_coefficients
+
+    run = n13_tier(model, "limb", lam, LIMB_STEPS)
+    rows = run.pop("rows")
+    diff = float(np.abs(rows[:7] - f64_rows[:7, :LIMB_STEPS]).max())
+    if not diff <= LIMB_ATOL:
+        raise AssertionError(f"n13 limb vs f64: {diff:.3e} > {LIMB_ATOL:g}")
+    K = max(2, chebyshev_coefficients(lam, np.asarray([N13_DT])).shape[1])
+    key, entry = next((k, e) for k, e in _ENGINE_CACHE.items() if k[2] == "limb")
+    P = torch.zeros((2, entry["so"].DL, entry["so"].DR), dtype=torch.float64,
+                    device=torch.device(key[4]))
+    P[0, 0, 0] = 1.0
+    step_s = run["stages_s"]["stepping"]
+    return dict(run, vs_f64=diff, K=K, steps_per_s=LIMB_STEPS / step_s,
+                applies_per_s=LIMB_STEPS * (K - 1) / step_s,
+                kernels_per_apply=device_kernels_per_call(lambda: entry["apply_ht"](P)))
 
 
 def production_sweep(solver: str, base_dir: str) -> dict:
@@ -1115,7 +1455,7 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    say("[1/14] card (nvidia-smi name, power.limit):")
+    say("[1/19] card (nvidia-smi name, power.limit):")
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
@@ -1129,14 +1469,14 @@ def main() -> int:
     built = build_all(extra_flags=("-Xptxas", "-v"))
     for kname, (out, sec) in built.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        say(f"[2/14] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
+        say(f"[2/19] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
     say(f"      all {len(built)} builds (in parallel): {time.perf_counter() - t0:.2f} s")
 
     main_shape = (39, 128, 128, 1680)
     at_main = check_cmatmul(main_shape, peaks, seed=1)
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
-        say(f"[3/14] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
+        say(f"[3/19] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
             f"(bound {KERNEL_REL_TOL:g}), device ms per call: kernel {r['ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library (complex64 matmul) {r['library_ms']:.4f}; eager call "
             f"{r['call_ms']:.4f} ms; 3xTF32 bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -1145,7 +1485,7 @@ def main() -> int:
     limb = {}
     for i, lname in enumerate(LIMB_SHAPES):
         r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
-        say(f"[4/14] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
+        say(f"[4/19] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
             f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit (two "
             f"calls), plan {r['plan']}; device ms per call: kernel {r['ms']:.4f}, 12 "
             f"torch._int_mm digit products (no carry) {r['int_mm_digits_ms']:.4f}, f64 matmul of "
@@ -1163,13 +1503,18 @@ def main() -> int:
     # card works
     ctx = multiprocessing.get_context("spawn")
     oracles = {n: start_oracle(ctx, n) for n in (13, 12)}
+    rx, tx = ctx.Pipe(duplex=False)
+    lab_proc = ctx.Process(target=labframe_oracle, args=(tx,), daemon=True)
+    lab_proc.start()
+    tx.close()
+    oracles["lab"] = (lab_proc, rx)
 
     obs = {}
     simt, simt_s = simt_build.result()
     say(f"      built {EXT_OBS_SIMT_SRC} (kernel 3's SIMT design, for phase 5) in {simt_s:.2f} s")
     for i, shape in enumerate(EXT_OBS_SHAPES):
         r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
-        say(f"[5/14] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
+        say(f"[5/19] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
             f"call: kernel {r['ms']:.4f}, SIMT design {r['simt_ms']:.4f} (same call, in turns: "
             f"{r['ms_turns']}, {r['simt_ms_turns']}); eager call {r['call_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -1184,7 +1529,7 @@ def main() -> int:
     zexp = {}
     for i, zshape in enumerate(ZEXP_SHAPES):
         r = zexp[zshape] = check_zexp(zshape, peaks, seed=30 + i)
-        say(f"[6/14] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
+        say(f"[6/19] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
             f"{KERNEL_REL_TOL:g}; the float32 chain {r['chain_rel_err']:.3e}), "
             f"{r['bit_equal_share']:.4f} of outputs equal to plain bit for bit, two calls "
             f"equal; plan {r['plan']}; device ms per call: kernel {r['ms']:.5f}, plain "
@@ -1209,7 +1554,7 @@ def main() -> int:
         oracle_err = oracle_check(dir64, tr64)
         if not oracle_err <= ORACLE_ATOL:
             raise AssertionError(f"eig: Iz_sea vs host oracle {oracle_err:.3e} > {ORACLE_ATOL:g}")
-        say(f"[7/14] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
+        say(f"[7/19] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
@@ -1227,7 +1572,7 @@ def main() -> int:
         )
         if not diff <= EIG32_ATOL:
             raise AssertionError(f"eig32 vs eig: {diff:.3e} > {EIG32_ATOL:g}")
-        say(f"[8/14] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
+        say(f"[8/19] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
             f"max |eig32 - eig| {diff:.2e} "
             f"(bound {EIG32_ATOL:g}); launches {launches_eig32}")
 
@@ -1268,7 +1613,7 @@ def main() -> int:
         sim_vs_f64 = float(np.abs(rows_sim - f64["rows"][:7]).max())
         if not sim_vs_f64 <= 1e-12:
             raise AssertionError(f"n13: simulate_rare vs chebyshev_step_traces f64 {sim_vs_f64:.3e}")
-        say(f"[9/14] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
+        say(f"[9/19] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
             f"{sim_wall:.2f} s wall, launches {launches_sim}; timed f64 run "
             f"{f64['wall_s']:.2f} s {f64['stages_s']}, {T / f64['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / f64['stages_s']['stepping']:.1f} applies/s; host set-up {setup}; "
@@ -1291,7 +1636,7 @@ def main() -> int:
                  for tier, r in (("f64", f64), ("extp", extp))}
         if not max(o_err.values()) <= N13_ORACLE_ATOL:
             raise AssertionError(f"n13 vs expm_multiply oracle at t=dt: {o_err} > {N13_ORACLE_ATOL:g}")
-        say(f"[10/14] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
+        say(f"[10/19] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
             f"{T / extp['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / extp['stages_s']['stepping']:.1f} applies/s, "
             f"{n_launch} limb_matmul_canon launches ({6 * (K - 1)} per step); limb split of the "
@@ -1303,7 +1648,7 @@ def main() -> int:
 
         n12 = n12_ext(oracles[12])
         st = n12["stages_s"]
-        say(f"[11/14] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
+        say(f"[11/19] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
             f"(auto -> ext) {n12['wall_s']:.2f} s wall, stages {st}; n_sq {n12['n_sq']}: "
             f"{n12['products']} (8192)^3 ext products, {n12['s_per_product']:.3f} s each "
             f"(int8 tensor-core bound {n12['product_bound_s']:.3f} s); launches "
@@ -1313,7 +1658,7 @@ def main() -> int:
             f"{n12['oracle_s']:.1f} s on the host)")
 
         kry = n12_krylov(n12)
-        say(f"[12/14] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
+        say(f"[12/19] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
             f"simulate_rare {kry['wall_s']:.2f} s wall, n_sub {kry['n_sub']} per output step "
             f"(norm bound {kry['norm_bound']:.6e} rad/s), {kry['substeps']} substeps, "
             f"{kry['s_per_substep']:.5f} s per substep, {kry['applies_per_s']:.1f} applies/s; "
@@ -1326,7 +1671,7 @@ def main() -> int:
 
         cheb = n13_chebyshev(f64["rows"], o_rows, peaks)
         zp = cheb["zexp"]
-        say(f"[13/14] n13 chebyshev (dim 16384, {CHEB_STEPS} output steps, t_final "
+        say(f"[13/19] n13 chebyshev (dim 16384, {CHEB_STEPS} output steps, t_final "
             f"{N13_DT * (CHEB_STEPS - 1):.6f} s): lambda {cheb['lambda']:.6e} rad/s, K "
             f"{cheb['K']}, sweep {cheb['sweep_s']:.2f} s, {cheb['s_per_apply'] * 1e3:.4f} ms per "
             f"apply, {cheb['applies_per_s']:.1f} applies/s; simulate_rare (chebyshev) "
@@ -1342,6 +1687,48 @@ def main() -> int:
             f"{zp['cold_ms']:.5f}), plain {zp['plain_ms']:.5f}, same-function chain "
             f"{zp['yardsticks_ms']['chain']:.5f}; eager call {zp['call_ms']:.5f} ms; bound "
             f"{zp['bound_ms']:.5f} ms ({zp['bound_by']})")
+
+        # ---- phases A-E: the solvers ported after the kernels ----
+        expm = dense_expm()
+        say(f"[14/19] A. dense expm (n_sea 6, dim 128, {len(expm['t'])} steps over 30 s, the "
+            f"simulate CLI's production parameters): simulate_rare(expm) {expm['wall_s']:.2f} s "
+            f"wall (eig route {expm['eig_wall_s']:.2f} s); vs eig {expm['vs_eig']:.2e} (bound "
+            f"{EXPM_ATOL:g}); max|norm-1| {expm['norm_dev']:.2e} (bound {EXPM_NORM_ATOL:g}); "
+            f"launches {expm['launches']}")
+        dop = dopri_rotating()
+        say(f"[15/19] B. dopri, rotating frame (n_sea 6, t_final {DOPRI_T_FINAL:g} s, "
+            f"{DOPRI_STEPS} outputs, atol/rtol {DOPRI_TOL}): {dop['wall_s']:.2f} s wall, "
+            f"n_accepted {dop['n_accepted']}, n_rejected {dop['n_rejected']}, "
+            f"{dop['accepted_per_s']:.1f} accepted steps/s ({dop['attempted_ms']:.4f} ms per "
+            f"attempted step); vs eig {dop['vs_eig']:.2e} (bound {DOPRI_ATOL:g}); max|norm-1| "
+            f"{dop['norm_dev']:.2e} (bound {DOPRI_NORM_ATOL:g}); launches {dop['launches']}")
+        lab = labframe_and_cli(oracles["lab"], expm, tmp)
+        say(f"[16/19] C. lab frame (n_sea 6, scaled frequencies, 2e-3 s, 81 outputs): "
+            f"simulate_lab_frame {lab['wall_s']:.2f} s wall; Iz_sea vs DOP853 oracle "
+            f"{lab['vs_oracle']:.2e} (bound {LAB_ATOL:g}; oracle {lab['oracle_s']:.1f} s on the "
+            f"host); max|norm-1| {lab['norm_dev']:.2e}; launches {lab['launches']}; simulate CLI "
+            f"{' '.join(SIM_ARGV)}: {lab['cli_wall_s']:.2f} s, trace.npz equal to phase A's bit "
+            f"for bit ('{lab['cli_line']}')")
+        oz = ozaki_n12(n12.pop("rows"), peaks)
+        say(f"[17/19] D. Ozaki expm (n12, dim 8192, {N12_STEPS} steps, production dt, uncut): "
+            f"simulate_rare(expm) {oz['wall_s']:.2f} s wall, stages {oz['stages_s']} (calls "
+            f"{oz['stage_calls']}); n_sq {oz['n_sq']}; {oz['s_per_real_product']:.4f} s per real "
+            f"(8192)^3 Ozaki product ({oz['limb_pairs']} int8 limb-pair GEMMs; int8 tensor-core "
+            f"bound {oz['real_product_bound_s']:.4f} s); peak {oz['peak_gb']:.2f} GB; vs ext "
+            f"{oz['vs_ext']:.2e} (bound {OZAKI_ATOL:g}); max|norm-1| {oz['norm_dev']:.3e}; "
+            f"launches {oz['launches']}; dense complex128 expm_propagate_traces on the same "
+            f"workload {oz['dense_wall_s']:.2f} s, vs ext {oz['dense_vs_ext']:.2e}, max|norm-1| "
+            f"{oz['dense_norm_dev']:.3e}")
+        lt = limb_tier(model, lam, f64["rows"])
+        say(f"[18/19] E. cheb_step limb tier (n13, dim 16384, {LIMB_STEPS} steps, production dt, "
+            f"K {lt['K']}): {lt['wall_s']:.2f} s {lt['stages_s']}, {lt['steps_per_s']:.4f} "
+            f"steps/s, {lt['applies_per_s']:.1f} applies/s, {lt['kernels_per_apply']} device "
+            f"kernels per apply (torch.profiler); vs f64 {lt['vs_f64']:.2e} (bound "
+            f"{LIMB_ATOL:g}); launches {lt['launches']}")
+        expm.pop("named")
+        expm.pop("t")
+        say(json.dumps({"solvers": {"expm": expm, "dopri": dop, "labframe": lab,
+                                    "ozaki_n12": oz, "limb_n13": lt}}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for proc, _ in oracles.values():
@@ -1460,7 +1847,7 @@ def main() -> int:
             "n12_krylov": kry,
         },
     ]
-    say(f"[14/14] total {time.perf_counter() - t_start:.1f} s; kernels:")
+    say(f"[19/19] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,9 +17,6 @@ reprocess_sweep_results.py:291-319).  Layout per sweep:
         time_and_obs_{center_off|center_on|shell_off}.npz
         params_{tag}.json  freqs_{tag}.json  metrics.json
         4x PNG plots
-
-The readers of this tree (``json_load``, ``load_trace_npz``) come with the
-reprocessors (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -60,6 +57,11 @@ def json_dump(path: str, obj: Any) -> None:
     """JSON with the reference's formatting (indent=2, floats coerced)."""
     with open(path, "w", encoding="utf-8") as f:
         json.dump(obj, f, indent=2, default=float)
+
+
+def json_load(path: str) -> Any:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
 
 
 def save_geometry_npz(
@@ -108,3 +110,8 @@ def write_sweep_csv(base_dir: str, rows: list[dict]) -> None:
         for row in rows:
             wr.writerow(row)
 
+
+
+def load_trace_npz(det_dir: str, tag: str) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+    with np.load(os.path.join(det_dir, f"time_and_obs_{tag}.npz"), allow_pickle=False) as data:
+        return data["t"], {k: data[k] for k in data.files if k != "t"}

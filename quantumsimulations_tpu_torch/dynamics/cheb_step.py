@@ -23,7 +23,9 @@ holding both planes.  Arithmetic tiers (``arithmetic=``):
     digits from exact float64 matmuls (ops/split_apply_ext.py);
   * ``"extp"`` — the same limb domain with every product through the
     hand-written CUDA kernel ``limb_matmul_canon`` (ops/limb_kernels.py);
-  * ``"limb"`` — not ported yet (ROADMAP.md queue 1 item 3).
+  * ``"limb"`` — the float64 recurrence with every apply product an exact
+    int8 limb product of the Ozaki tier (ops/split_apply_limb.py, 9 limbs
+    of 6 bits, ``torch._int_mm``).
 
 Each dispatch (``steps_per_dispatch`` output steps: the host loop's chunk
 between row fetches and checkpoints) stacks its pre-advance states and turns
@@ -52,9 +54,6 @@ from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
 from .chebyshev import chebyshev_coefficients
 from .observables import assembled_rows
-
-_LIMB_TIER = "arithmetic 'limb' (ops/split_apply_limb.py) is not ported yet: ROADMAP.md queue 1 item 3"
-
 
 class CooperativeStop(RuntimeError):
     """Raised when a stop file asked a long trace to yield the device.
@@ -244,7 +243,10 @@ def _engine_for(H: OperatorSum, lam: float, arith: str, split: int | None, dev: 
         entry.update(apply_ht=apply_ht, so=so,
                      run=_make_step_run_ext(apply_ext.stacked, grid_ops))
     elif arith == "limb":
-        raise NotImplementedError(_LIMB_TIER)
+        from ..ops.split_apply_limb import make_split_apply_limb
+
+        apply_ht, so = make_split_apply_limb(H, split=split, scale=1.0 / lam, device=dev)
+        entry.update(apply_ht=apply_ht.stacked, so=so, run=_make_step_run(apply_ht.stacked))
     elif arith == "f64":
         apply_ht, so = make_split_apply(H, split=split, scale=1.0 / lam, device=dev)
         entry.update(apply_ht=apply_ht.stacked, so=so, run=_make_step_run(apply_ht.stacked))
@@ -300,9 +302,8 @@ def chebyshev_step_traces(
     QST_CHEB_ABORT_AFTER_DISPATCHES aborts after that many (tests).
 
     ``arithmetic`` selects the apply's tier (env override QST_CHEB_ARITH;
-    default :func:`_default_arith`): "f64", "ext" or "extp" (module
-    docstring); "limb" raises NotImplementedError.  All tiers agree to
-    float64 roundoff.
+    default :func:`_default_arith`): "f64", "limb", "ext" or "extp" (module
+    docstring).  All tiers agree to float64 roundoff.
 
     Port-only parameters: ``device`` (default "cuda"; raises without CUDA)
     and ``timer``, a :class:`StageTimer` that, when given, receives the

@@ -23,17 +23,25 @@ Two precisions:
 
 Parameters kept for call-site compatibility with the JAX package:
 
-  * ``t_chunk`` — columns of output times per block.  The default bounds the
-    per-block state tensor at 64 MiB (``_CHUNK_STATE_BYTES``).
+  * ``t_chunk`` — columns of output times per block.  The default
+    (:func:`default_time_chunk`, the JAX package's table, QST_TCHUNK
+    overriding it) bounds the per-block state tensor at 64 MiB of complex128
+    or complex64 (twice the columns in the f32 mode, as the JAX package).
   * ``pack`` — a no-op.  It selected the JAX package's byte-packed trace
     download, which exists only for its TPU link; the port always returns
     plain float64 rows.
   * ``interpret`` (f32 mode) — a no-op.  It selected Pallas interpret mode;
     here the tensors' device alone picks the kernel (CUDA) or the plain
     PyTorch version (CPU).
+
+The per-site API (:func:`eig_propagate_traces` and its batched form) returns
+each site's <Sx, Sy, Sz> instead of the assembled rows, for tests and custom
+observables.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -47,8 +55,6 @@ from .phase import grid_expi_neg, reduce_wdt_host, uniform_grid_decomposition
 #: dict plus the two diagnostics)
 TRACE_ROWS = ("Ix_sea", "Iy_sea", "Iz_sea", "Iz_R", "Ix_R", "Iy_R", "state_norm", "energy")
 
-#: bound on the per-block state tensor B*dim*t_chunk*itemsize
-_CHUNK_STATE_BYTES = 64 << 20
 
 
 def eigh_host(H: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -57,13 +63,25 @@ def eigh_host(H: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return w, V
 
 
+def dense_matrix_host(op) -> np.ndarray:
+    """Dense complex128 matrix of an OperatorSum (its index-arithmetic
+    ``to_dense``); the JAX package's named hook for the host build."""
+    return op.to_dense()
+
+
+def default_time_chunk(dim: int, T: int, batch: int = 1) -> int:
+    """Output times per block: 2^22 / (dim * batch) columns (64 MiB of
+    complex128 states), at least 64 and at most T; env QST_TCHUNK
+    overrides, as in the JAX package."""
+    env = os.environ.get("QST_TCHUNK")
+    if env:
+        return max(1, min(T, int(env)))
+    return max(64, min(T, (1 << 22) // max(1, dim * batch)))
+
+
 def _coeffs(V: torch.Tensor, psi0: torch.Tensor) -> torch.Tensor:
     """c = V^dag psi0 for a batch: (B, dim, dim), (B, dim) -> (B, dim)."""
     return (V.mH @ psi0.unsqueeze(-1)).squeeze(-1)
-
-
-def _default_time_chunk(dim: int, T: int, batch: int, itemsize: int) -> int:
-    return max(64, min(T, _CHUNK_STATE_BYTES // max(1, dim * batch * itemsize)))
 
 
 def _assemble_rows(xyz, norms, energy, sea_mask, idx_rare) -> torch.Tensor:
@@ -82,7 +100,8 @@ def _setup(w, V, psi0, times, dims, n_sea_effective, t_chunk, itemsize, device):
     B, dim = w.shape
     T = len(times)
     if t_chunk is None:
-        t_chunk = _default_time_chunk(dim, T, B, itemsize)
+        # float32 states: half the bytes, twice the columns
+        t_chunk = default_time_chunk(dim, T, batch=B) * (16 // itemsize)
     dt, eps = uniform_grid_decomposition(times)
     r = np.stack([reduce_wdt_host(wb, dt) for wb in w])
     sea_mask = (
@@ -180,3 +199,47 @@ def eig_traces_assembled_batched32(
 def traces_dict(row_block: np.ndarray) -> dict[str, np.ndarray]:
     """(8, T) assembled rows -> the reference's named trace dict (+energy)."""
     return {name: row_block[i] for i, name in enumerate(TRACE_ROWS)}
+
+
+def eig_propagate_traces_batched(
+    w: np.ndarray,
+    V: np.ndarray,
+    psi0: np.ndarray,
+    times: np.ndarray,
+    dims: tuple[int, ...],
+    t_chunk: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Batched per-site traces: site_xyz (B, n, 3, T), norm (B, T), energy (B, T)."""
+    s = _setup(w, V, psi0, times, dims, np.zeros(np.asarray(w).shape[0]), t_chunk, 16, device)
+    V, w, r = s["V"], s["w"], s["r"]
+    c = _coeffs(V, s["psi0"])
+    xyzs, norms, energies = [], [], []
+    for t0 in range(0, s["T"], s["t_chunk"]):
+        kb, eb = s["k"][t0 : t0 + s["t_chunk"]], s["eps"][t0 : t0 + s["t_chunk"]]
+        amp = c.unsqueeze(-1) * grid_expi_neg(r, kb, w, eb)  # (B, dim, Tc)
+        states = V @ amp
+        xyzs.append(site_xyz_expectations(states, dims))
+        norms.append(state_norms(states))
+        energies.append((w.unsqueeze(-1) * (amp.real * amp.real + amp.imag * amp.imag)).sum(dim=-2))
+    return {
+        "site_xyz": torch.cat(xyzs, dim=-1).cpu().numpy(),
+        "norm": torch.cat(norms, dim=-1).cpu().numpy(),
+        "energy": torch.cat(energies, dim=-1).cpu().numpy(),
+    }
+
+
+def eig_propagate_traces(
+    w: np.ndarray,
+    V: np.ndarray,
+    psi0: np.ndarray,
+    times: np.ndarray,
+    dims: tuple[int, ...],
+    t_chunk: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Per-site traces for one simulation: site_xyz (n, 3, T), norm, energy."""
+    out = eig_propagate_traces_batched(
+        w[None, :], V[None, :, :], psi0[None, :], times, dims, t_chunk=t_chunk, device=device
+    )
+    return {k: v[0] for k, v in out.items()}

@@ -15,11 +15,17 @@ Solver dispatch (params.solver_method) in this port:
   * "krylov" — matrix-free Lanczos stepping (krylov.py).
   * "chebyshev" — one matrix-free global Chebyshev basis sweep for all
               output times (chebyshev.py).
+  * "expm"  — the dense step operator by Taylor + scaling and squaring:
+              complex128 matmuls (expm_propagator.expm_propagate_traces),
+              or, at dim >= 2048 on cuda, the same chain on float64-accurate
+              int8 limb products (expm_traces_assembled_ozaki), as the JAX
+              package routes it off its CPU backend.
+  * "dopri" — adaptive Dormand–Prince (dopri.py), honoring
+              solver_atol / solver_rtol (defaults 1e-10 / 1e-9).
   * "auto"  — as in the JAX package: "eig" up to dim 2048, "ext" up to dim
               8192, "cheb_step" above.
 
-The JAX package's other solvers are not ported yet; asking for one raises
-NotImplementedError naming the ROADMAP.md item that will port it.
+Every solver of the JAX package's ``simulate_rare`` runs here.
 """
 
 from __future__ import annotations
@@ -29,24 +35,24 @@ import torch
 
 from ..models.dipolar import build_model
 from ..models.params import DipolarRareParams
+from ..utils.device import resolve_device
 from .eig_propagator import (
     eig_traces_assembled_batched,
     eig_traces_assembled_batched32,
     eigh_host,
     traces_dict,
 )
+from .observables import assemble_traces
 
 _EIG_MAX_DIM = 2048  # host eigh is cheap up to here (seconds on one core)
 _EXT_MAX_DIM = 8192  # the JAX package's dense ext limb chain reaches this far
 
-#: where each solver of the JAX package is scheduled to be ported
-_NOT_PORTED = {
-    "expm": "ROADMAP.md queue 1 item 3 (other solvers: expm and Ozaki)",
-    "dopri": "ROADMAP.md queue 1 item 3 (other solvers: dopri)",
-}
+#: solvers of the JAX package not ported yet, each with the ROADMAP.md item
+#: that ports it (none left)
+_NOT_PORTED: dict[str, str] = {}
 
 #: the solvers this port runs
-PORTED = ("eig", "eig32", "ext", "cheb_step", "krylov", "chebyshev")
+PORTED = ("eig", "eig32", "ext", "cheb_step", "krylov", "chebyshev", "expm", "dopri")
 
 
 def _auto_method(dim: int) -> str:
@@ -58,12 +64,13 @@ def _auto_method(dim: int) -> str:
 
 
 def check_method(method: str) -> None:
-    """Raise for a solver this port does not run yet (or does not know)."""
+    """Raise for a solver this port does not run yet (or does not know);
+    "auto" resolves to a ported solver at every dim."""
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"solver_method {method!r} is not ported to PyTorch yet: {_NOT_PORTED[method]}"
         )
-    if method not in PORTED:
+    if method not in PORTED and method != "auto":
         raise ValueError(f"unknown solver_method: {method!r}")
 
 
@@ -74,7 +81,8 @@ def simulate_rare(
 
     Port-only parameters: ``device`` (default "cuda"; raises without CUDA)
     and ``timer``, a :class:`..utils.profiling.StageTimer` handed to the
-    stepping routes ("ext", "cheb_step") for their stage split."""
+    stepping routes ("ext", "cheb_step", the Ozaki "expm") for their stage
+    split."""
     if params.steps < 2 or params.t_final <= 0.0:
         raise ValueError("Bad time grid: steps >= 2 and t_final > 0.")
 
@@ -118,6 +126,31 @@ def simulate_rare(
         named = traces_dict(rows)
         named.pop("energy", None)
         return t, named
+    if method == "expm":
+        from .expm_propagator import expm_propagate_traces, expm_traces_assembled_ozaki
+
+        if dim >= 2048 and resolve_device(device).type != "cpu":
+            # the JAX package's route off its CPU backend: a limb-product
+            # step operator
+            rows = expm_traces_assembled_ozaki(
+                model.hamiltonian, model.psi0, t, dims,
+                model.n_sea_effective, model.idx_rare, device=device, timer=timer,
+            )
+            named = traces_dict(rows)
+            named.pop("energy", None)
+            return t, named
+        out = expm_propagate_traces(model.hamiltonian, model.psi0, t, dims, device=device)
+        return t, assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective,
+                                  model.idx_rare)
+    if method == "dopri":
+        from .dopri import dopri_propagate_traces
+
+        out = dopri_propagate_traces(
+            model.hamiltonian, model.psi0, t, dims,
+            atol=params.solver_atol or 1e-10, rtol=params.solver_rtol or 1e-9, device=device,
+        )
+        return t, assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective,
+                                  model.idx_rare)
     if method == "ext":
         # parity-grade dense step operator: a Taylor + squaring chain of
         # exact integer limb products; only the 75-bit truncation is

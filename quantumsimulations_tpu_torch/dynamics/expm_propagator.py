@@ -1,8 +1,29 @@
-"""Dense exact-limb step-operator propagator: the "ext" route (2048 < dim <= 8192).
+"""Dense step-operator propagators: the "expm" routes and the exact-limb
+"ext" route (2048 < dim <= 8192).
 
-Port of the ext part of ``quantumsimulations_tpu/dynamics/expm_propagator.py``
-(``expm_traces_assembled_ext`` and its helpers) and of the host power
-iteration ``_spectral_norm_host`` that the Chebyshev stepper also uses.
+Port of ``quantumsimulations_tpu/dynamics/expm_propagator.py``: the
+float64 ``expm`` route (:func:`build_step_operator`,
+:func:`expm_propagate_traces`), its Ozaki form for large dims
+(:func:`expm_traces_assembled_ozaki`), the ext route
+(:func:`expm_traces_assembled_ext`) and the host power iteration
+``_spectral_norm_host`` that the Chebyshev stepper also uses.
+
+The float64 ``expm`` route.  U = exp(-i H dt) by scaling and squaring
+around a degree-16 Taylor core (Horner), the first ``block`` states by
+U-matvecs, then whole (dim, block) blocks advanced by U^block.  The JAX
+package runs the products on (re, im) float64 planes; here they are
+complex128 ``torch.matmul`` (cuBLAS ZGEMM on the card, which has float64
+tensor cores), so the values agree with it to float64 rounding.
+
+The Ozaki ``expm`` route, which ``simulate_rare`` takes at dim >= 2048 off
+the CPU, as the JAX package does off its CPU backend: the same chain with
+every square product a float64-accurate limb product
+(ops/extprec.py::cmatmul_f64, int8 GEMMs), the Taylor core at theta = 1 with
+the power-iteration norm estimate, and the seed block and U^block from one
+doubling pass.  The JAX package's ``block_until_ready`` calls between its
+products (its TPU's memory pressure) are stage boundaries of the optional
+``timer`` here: "setup", "split", "horner", "squarings", "doubling",
+"advance".
 
 The squaring chain amplifies per-product error by 2^(n_squarings +
 log2(block)) (about 2^26 at the n_sea = 12 production workload), so every
@@ -45,10 +66,6 @@ operator, energy, norm), "split", "horner", "squarings", "doubling",
 "advance" and "obs", each ending in a device synchronise.
 QST_EXT_ABORT_AFTER_CHUNKS (abort after that many advance chunks, once the
 snapshot is on disk) is kept for the resume tests.
-
-Not ported yet (ROADMAP.md queue 1 item 3): the float64 ``expm`` route
-(``build_step_operator``, ``expm_propagate_traces``) and the Ozaki route
-(``expm_traces_assembled_ozaki``).
 """
 
 from __future__ import annotations
@@ -317,13 +334,7 @@ def expm_traces_assembled_ext(
     stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
     times = np.asarray(times)
     T = len(times)
-    if T > 1:
-        dts = np.diff(times)
-        if not np.allclose(dts, dts[0], rtol=1e-9, atol=0.0):
-            raise ValueError("expm stepper requires a uniform time grid")
-        dt = float(dts[0])
-    else:
-        dt = 0.0
+    dt = _uniform_dt(times)
     dim = int(np.prod(dims))
     block = min(block, T)
     block = 1 << (block.bit_length() - 1)  # power of two for the doubling pass
@@ -425,3 +436,261 @@ def expm_traces_assembled_ext(
         clear_ext_advance(ckpt_dir)
     arr = np.concatenate(flats).reshape(done, 8, block)[:n_blocks]
     return np.ascontiguousarray(np.moveaxis(arr, 0, 1).reshape(8, -1)[:, :T])
+
+
+# ---------------------------------------------------------------------------
+# The float64 "expm" route
+# ---------------------------------------------------------------------------
+
+_TAYLOR_DEGREE = 16
+_TAYLOR_THETA = 1.0  # scale so that ||A|| * dt / 2^s <= theta
+
+
+def _uniform_dt(times: np.ndarray) -> float:
+    if len(times) > 1:
+        dts = np.diff(times)
+        if not np.allclose(dts, dts[0], rtol=1e-9, atol=0.0):
+            raise ValueError("expm stepper requires a uniform time grid")
+        return float(dts[0])
+    return 0.0
+
+
+def _n_squarings(norm: float, dt: float) -> int:
+    x = norm * abs(dt)
+    return max(0, int(np.ceil(np.log2(max(x, 1e-30) / _TAYLOR_THETA))))
+
+
+def _taylor_expm(A: torch.Tensor, degree: int = _TAYLOR_DEGREE) -> torch.Tensor:
+    """exp(A) by Horner-evaluated truncated Taylor (||A|| <= ~1)."""
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    acc = eye
+    # Horner: exp(A) ~ I + A(I + A/2 (I + A/3 (...)))
+    for k in range(degree, 0, -1):
+        acc = eye + (A @ acc) * (1.0 / k)
+    return acc
+
+
+def _expm_scaled(Hd: torch.Tensor, dt_scaled: float, n_squarings: int,
+                 degree: int = _TAYLOR_DEGREE) -> torch.Tensor:
+    """exp(-i H dt) with dt = dt_scaled * 2^n_squarings (complex128)."""
+    A = torch.complex(Hd.imag * dt_scaled, -Hd.real * dt_scaled)  # -i * H * dt_scaled
+    U = _taylor_expm(A, degree)
+    for _ in range(n_squarings):
+        U = U @ U
+    return U
+
+
+def build_step_operator(H: OperatorSum, dt: float, device: str | torch.device = "cuda") -> torch.Tensor:
+    """Dense U = exp(-i H dt) as a complex128 tensor on ``device``."""
+    from .krylov import spectral_norm_bound
+
+    dev = resolve_device(device)
+    Hd = torch.as_tensor(H.to_dense(), dtype=torch.complex128, device=dev)
+    n_sq = _n_squarings(spectral_norm_bound(H), dt)
+    return _expm_scaled(Hd, dt / (2**n_sq), n_sq)
+
+
+def _matrix_power(U: torch.Tensor, p: int) -> torch.Tensor:
+    result = None
+    base = U
+    while p > 0:
+        if p & 1:
+            result = base if result is None else result @ base
+        p >>= 1
+        if p:
+            base = base @ base
+    return result
+
+
+def _propagate_blocks(U: torch.Tensor, psi0: torch.Tensor, n_blocks: int, block: int, dims):
+    """All output states by blocked stepping; per-block observables
+    ((n_blocks, n, 3, block), (n_blocks, block))."""
+    from .observables import site_xyz_expectations, state_norms
+
+    # seed block: psi(0), U psi(0), ..., U^{B-1} psi(0)
+    S = torch.empty((psi0.shape[0], block), dtype=psi0.dtype, device=psi0.device)
+    p = psi0
+    for c in range(block):
+        S[:, c] = p
+        p = U @ p
+    UB = _matrix_power(U, block)
+    xyzs, nrms = [], []
+    for _ in range(n_blocks):
+        xyzs.append(site_xyz_expectations(S, dims))
+        nrms.append(state_norms(S))
+        S = UB @ S
+    return torch.stack(xyzs), torch.stack(nrms)
+
+
+def _energy0(H: OperatorSum, psi0: np.ndarray, dev) -> float:
+    """<psi0|H|psi0>, conserved under the unitary propagation of a
+    time-independent H."""
+    p0 = torch.as_tensor(np.asarray(psi0), dtype=torch.complex128, device=dev)
+    return float(torch.vdot(p0, H.apply(p0)).real)
+
+
+def expm_propagate_traces(
+    H: OperatorSum,
+    psi0: np.ndarray,
+    times: np.ndarray,
+    dims: tuple[int, ...],
+    block: int = 128,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Observable traces via the dense step operator (uniform grid
+    required): site_xyz (n, 3, T), norm (T,), energy (T,).
+
+    Port-only parameter: ``device`` (default "cuda"; raises without CUDA)."""
+    dev = resolve_device(device)
+    times = np.asarray(times)
+    T = len(times)
+    dt = _uniform_dt(times)
+    block = min(block, T)
+    n_blocks = int(np.ceil(T / block))
+    U = build_step_operator(H, dt, device=dev)
+    p0 = torch.as_tensor(np.asarray(psi0), dtype=torch.complex128, device=dev)
+    xyzs, nrms = _propagate_blocks(U, p0, n_blocks, block, dims)
+    # (n_blocks, n, 3, B) -> (n, 3, n_blocks * B), trimmed to T
+    xyz = xyzs.permute(1, 2, 0, 3).reshape(len(dims), 3, n_blocks * block)[..., :T]
+    norm = nrms.reshape(-1)[:T]
+    return {"site_xyz": xyz.cpu().numpy(), "norm": norm.cpu().numpy(),
+            "energy": np.full(T, _energy0(H, psi0, dev))}
+
+
+# ---------------------------------------------------------------------------
+# The Ozaki "expm" route: float64-accurate square products from int8 limbs
+# ---------------------------------------------------------------------------
+
+
+def _ozaki_expm(H: OperatorSum, dt: float, dev, stage) -> tuple[torch.Tensor, torch.Tensor]:
+    """(U_re, U_im) = exp(-i H dt) by Taylor + scaling and squaring on limb
+    products, as the JAX package's ``_ozaki_expm``: the Horner recursion
+    D_N = A, D_{k-1} = A + (A @ D_k) / k, exp(A) ~ I + D_1, with A's limb
+    stacks split once, then n_sq complex squarings."""
+    from ..ops.extprec import cmatmul_f64, limbs_of, matmul_f64_prelimbed
+    from .krylov import spectral_norm_bound, spectral_norm_estimate_dense
+
+    with stage("setup"):
+        Hd = H.to_dense()
+        # power-iteration estimate: the triangle-inequality bound costs 1-2
+        # extra squarings, each doubling the limb products' rounding
+        norm = min(spectral_norm_bound(H), spectral_norm_estimate_dense(Hd, device=dev))
+        n_sq = _n_squarings(norm, dt)
+        dt_s = dt / (2**n_sq)
+    with stage("split"):
+        Are = torch.as_tensor(Hd.imag * dt_s, device=dev)  # A = -i H dt_s
+        Aim = torch.as_tensor(-Hd.real * dt_s, device=dev)
+        del Hd
+        Alr, asr = limbs_of(Are)
+        Ali, asi = limbs_of(Aim)
+    D_re, D_im = Are, Aim
+    for k in range(_TAYLOR_DEGREE, 1, -1):
+        with stage("horner"):
+            t_re = matmul_f64_prelimbed(Alr, asr, D_re) - matmul_f64_prelimbed(Ali, asi, D_im)
+            t_im = matmul_f64_prelimbed(Alr, asr, D_im) + matmul_f64_prelimbed(Ali, asi, D_re)
+            # A + t / k as one fused multiply-add, as XLA's CPU code fuses
+            # the JAX package's _axpy (torch.add with alpha is an FMA on
+            # the CPU's vector path and on the card)
+            D_re = torch.add(Are, t_re, alpha=1.0 / k)
+            D_im = torch.add(Aim, t_im, alpha=1.0 / k)
+    del Alr, Ali, Are, Aim
+    U_re = D_re.clone()
+    U_re.diagonal().add_(1.0)
+    U_im = D_im
+    for _ in range(n_sq):
+        with stage("squarings"):
+            U_re, U_im = cmatmul_f64(U_re, U_im, U_re, U_im)
+    return U_re, U_im
+
+
+def _cpower_ozaki(U: tuple[torch.Tensor, torch.Tensor], p: int):
+    """U^p for U = (re, im) by binary powering on limb products."""
+    from ..ops.extprec import cmatmul_f64
+
+    result = None
+    base = U
+    while p > 0:
+        if p & 1:
+            result = base if result is None else cmatmul_f64(*result, *base)
+        p >>= 1
+        if p:
+            base = cmatmul_f64(*base, *base)
+    return result
+
+
+def expm_traces_assembled_ozaki(
+    H: OperatorSum,
+    psi0: np.ndarray,
+    times: np.ndarray,
+    dims: tuple[int, ...],
+    n_sea_effective: int,
+    idx_rare: int,
+    block: int = 128,
+    device: str | torch.device = "cuda",
+    timer: StageTimer | None = None,
+) -> np.ndarray:
+    """Assembled rows (8, T), TRACE_ROWS layout, via the limb-product step
+    operator.  ``block`` is rounded down to a power of two: the seed block
+    and U^block come out of one doubling pass (S <- [S, P S], P <- P^2); the
+    block operator's limbs are split once, and each block advance is four
+    real limb products of (dim, dim) @ (dim, block).
+
+    Port-only parameters: ``device`` (default "cuda"; raises without CUDA)
+    and ``timer`` (module docstring)."""
+    from ..ops.extprec import (
+        LIMB_BITS,
+        N_LIMBS,
+        _accumulate_products,
+        _limb_split,
+        cmatmul_f64,
+        limbs_of,
+    )
+    from .observables import assembled_rows
+
+    dev = resolve_device(device)
+    stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
+    times = np.asarray(times)
+    T = len(times)
+    dt = _uniform_dt(times)
+    dim = int(np.prod(dims))
+    block = min(block, T)
+    block = 1 << (block.bit_length() - 1)
+    n_blocks = int(np.ceil(T / block))
+    sea_mask = torch.as_tensor((np.arange(len(dims)) < n_sea_effective).astype(np.float64),
+                               device=dev)
+    with stage("setup"):
+        e0 = _energy0(H, psi0, dev)
+
+    U = _ozaki_expm(H, dt, dev, stage)
+    psi0 = np.asarray(psi0)
+    S_re = torch.as_tensor(np.ascontiguousarray(psi0.real), device=dev).reshape(dim, 1)
+    S_im = torch.as_tensor(np.ascontiguousarray(psi0.imag), device=dev).reshape(dim, 1)
+    P = U
+    del U
+    for _ in range(block.bit_length() - 1):
+        with stage("doubling"):
+            ns_re, ns_im = cmatmul_f64(*P, S_re, S_im)
+            S_re = torch.cat([S_re, ns_re], dim=1)
+            S_im = torch.cat([S_im, ns_im], dim=1)
+            P = cmatmul_f64(*P, *P)
+    with stage("split"):
+        UBr, UBi = limbs_of(P[0]), limbs_of(P[1])
+    del P
+
+    def advance(S_re, S_im):  # B @ S, each state plane split once
+        Sr, Si = _limb_split(S_re), _limb_split(S_im)
+
+        def mm(L, S):
+            return _accumulate_products(L[0], S[0], (dim, block), N_LIMBS, LIMB_BITS) * (L[1] * S[1])
+
+        return mm(UBr, Sr) - mm(UBi, Si), mm(UBr, Si) + mm(UBi, Sr)
+
+    rows = torch.empty((8, n_blocks * block), dtype=torch.float64, device=dev)
+    rows[7] = e0
+    for b in range(n_blocks):
+        with stage("advance"):
+            rows[:7, b * block:(b + 1) * block] = assembled_rows(
+                torch.complex(S_re, S_im), dims, sea_mask, idx_rare)
+            if b + 1 < n_blocks:
+                S_re, S_im = advance(S_re, S_im)
+    return np.ascontiguousarray(rows[:, :T].cpu().numpy())

@@ -114,3 +114,30 @@ def grid_expi_neg(r, k, w, eps) -> torch.Tensor:
     """
     theta = grid_angles(r, k, w, eps)
     return torch.polar(torch.ones_like(theta), -theta)
+
+
+# ---------------------------------------------------------------------------
+# Generic (non-uniform t) fallback — accurate on strict-IEEE float64 (the
+# CPU and the card alike; eager torch fuses nothing, module docstring).
+# ---------------------------------------------------------------------------
+
+
+def _split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Head/tail split via a float32 round trip."""
+    hi = a.to(torch.float32).to(torch.float64)
+    return hi, a - hi
+
+
+def reduced_angles(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(w[:, None] * t[None, :]) mod 2pi via split product + Cody–Waite.
+
+    Accurate on strictly rounded IEEE float64; the uniform-grid path above
+    is the one the propagators take."""
+    w2 = w[:, None]
+    t2 = t[None, :]
+    p = w2 * t2
+    w_hi, w_lo = _split(w2)
+    t_hi, t_lo = _split(t2)
+    e = ((w_hi * t_hi - p) + w_hi * t_lo + w_lo * t_hi) + w_lo * t_lo
+    n = torch.round(p * _INV_TWO_PI)
+    return ((p - n * _PI2_A) - n * _PI2_B) - n * _PI2_C + e

@@ -4,12 +4,17 @@ Operators are kept as a light IR — a sum of :class:`ProductTerm`s, each a
 scalar coefficient times single-site operator factors.  The IR supports:
 
   * ``to_dense()``        — the dense complex128 matrix (host numpy), which
-                            the dense eigendecomposition propagator consumes;
+                            the dense eigendecomposition propagator consumes
+                            (``to_dense_kron`` is the slow kron-chain oracle,
+                            ``to_dense_cplx`` / ``to_dense_device`` the same
+                            matrix as a complex torch tensor);
   * ``to_coo()``          — the aggregated sparse triplet (host numpy), for
                             the spectral bound of the Chebyshev stepper;
   * ``diagonal_part()`` / ``offdiagonal_terms()`` — the decomposition the
                             split-matmul apply (ops/split_apply.py) is built
                             from;
+  * ``site_reduced_density`` / ``expect_site`` — single-site expectations
+                            through the reduced density matrix;
   * ``apply(psi)``        — the matrix-free H @ psi on a complex torch
                             statevector, term by term (any local dims), and
                             :func:`make_qubit_flip_apply`, the same product
@@ -20,15 +25,14 @@ scalar coefficient times single-site operator factors.  The IR supports:
 Sites are indexed 0..n-1 with per-site local dimension ``dims[k]`` (the rare
 spin, when present, is the last index, matching the reference convention at
 dipolar_ensemble_with_rare.py:28-34).
-
-Not ported from ``quantumsimulations_tpu/ops/embed.py``: ``to_dense_device``
-(no caller of the port needs the dense matrix on the card).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import reduce
 from itertools import product
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -62,6 +66,30 @@ class OperatorSum:
 
     dims: tuple[int, ...]
     terms: tuple[ProductTerm, ...]
+
+    # -- constructors --------------------------------------------------------
+    @staticmethod
+    def single_site(dims: Sequence[int], site: int, which: str, coeff: float = 1.0) -> "OperatorSum":
+        return OperatorSum(tuple(dims), (ProductTerm(coeff, ((site, which),)),))
+
+    @staticmethod
+    def sum_over_sites(dims: Sequence[int], sites: Sequence[int], which: str,
+                       coeff: float = 1.0) -> "OperatorSum":
+        return OperatorSum(tuple(dims), tuple(ProductTerm(coeff, ((s, which),)) for s in sites))
+
+    def __add__(self, other: "OperatorSum") -> "OperatorSum":
+        if other == 0:
+            return self
+        if self.dims != other.dims:
+            raise ValueError("dims mismatch")
+        return OperatorSum(self.dims, self.terms + other.terms)
+
+    __radd__ = __add__
+
+    def __mul__(self, c: float) -> "OperatorSum":
+        return OperatorSum(self.dims, tuple(ProductTerm(t.coeff * c, t.factors) for t in self.terms))
+
+    __rmul__ = __mul__
 
     @property
     def dim(self) -> int:
@@ -145,6 +173,42 @@ class OperatorSum:
             return z.astype(np.int64), z.astype(np.int64), z.astype(np.complex128)
         return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
 
+    def to_dense_kron(self) -> np.ndarray:
+        """Reference kron-chain assembly (slow; kept for validation)."""
+        H = np.zeros((self.dim, self.dim), dtype=np.complex128)
+        for term in self.terms:
+            fac = dict(term.factors)
+            mats = [local_op(d, fac[k]) if k in fac else np.eye(d, dtype=np.complex128)
+                    for k, d in enumerate(self.dims)]
+            H += term.coeff * reduce(np.kron, mats)
+        return H
+
+    def to_dense_cplx(self, dtype=torch.float64, device: str | torch.device = "cuda") -> torch.Tensor:
+        """:meth:`to_dense` as a complex tensor on ``device`` whose real and
+        imaginary parts have ``dtype`` (the JAX package's (re, im) planes)."""
+        cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+        return torch.as_tensor(self.to_dense(), device=resolve_device(device)).to(cdtype)
+
+    def to_dense_device(self, col_block: int = 256, device: str | torch.device = "cuda") -> torch.Tensor:
+        """The dense matrix assembled on ``device`` as complex128, by applying
+        the matrix-free terms to blocks of ``col_block`` identity columns
+        (out[:, j] = H @ e_j), as the JAX package's ``to_dense_device``."""
+        dev = resolve_device(device)
+        dim = self.dim
+        cb = min(col_block, dim)
+        diag = torch.as_tensor(self.diagonal_part(), dtype=torch.complex128, device=dev)
+        out = torch.empty((dim, dim), dtype=torch.complex128, device=dev)
+        for start in range(0, dim, cb):
+            width = min(cb, dim - start)
+            eye = torch.zeros((dim, width), dtype=torch.complex128, device=dev)
+            eye[start:start + width].diagonal().fill_(1.0)
+            blk = eye * diag[:, None]
+            eye_t = eye.reshape(self.dims + (width,))
+            for term in self.offdiagonal_terms():
+                blk = blk + _apply_product_term(eye_t, self.dims, term).reshape(dim, width)
+            out[:, start:start + width] = blk
+        return out
+
     def diagonal_part(self) -> np.ndarray:
         """Sum of all purely diagonal terms as a length-dim real vector.
 
@@ -190,13 +254,32 @@ class OperatorSum:
 
 
 def _apply_product_term(psi_t: torch.Tensor, dims: tuple[int, ...], term: ProductTerm) -> torch.Tensor:
-    """Apply coeff * prod(op_site) to a tensor-shaped statevector: each
-    factor contracts its site's axis, out'[.., a, ..] = sum_b op[a, b] out[.., b, ..]."""
+    """Apply coeff * prod(op_site) to a tensor-shaped statevector (trailing
+    axes after the sites are carried through): each factor contracts its
+    site's axis, out'[.., a, ..] = sum_b op[a, b] out[.., b, ..]."""
     out = psi_t
     for site, which in term.factors:
         op = torch.as_tensor(local_op(dims[site], which), dtype=psi_t.dtype, device=psi_t.device)
         out = torch.movedim(torch.tensordot(op, out, dims=([1], [site])), 0, site)
     return out * term.coeff
+
+
+def site_reduced_density(psi: torch.Tensor, dims: Sequence[int], site: int) -> torch.Tensor:
+    """Single-site reduced density matrix rho_site (d, d) of a flat complex
+    statevector: rho[a, b] = sum_{l, r} psi[l, a, r] * conj(psi[l, b, r])."""
+    dims = tuple(dims)
+    dl = int(np.prod(dims[:site], dtype=np.int64)) if site > 0 else 1
+    dr = int(np.prod(dims[site + 1:], dtype=np.int64)) if site + 1 < len(dims) else 1
+    p = psi.reshape(dl, dims[site], dr)
+    return torch.einsum("lar,lbr->ab", p, p.conj())
+
+
+def expect_site(psi: torch.Tensor, dims: Sequence[int], site: int, which: str) -> torch.Tensor:
+    """Real part of <psi| op_site |psi> via the reduced density matrix:
+    tr(rho @ op) = sum_ab rho[a, b] op[b, a]."""
+    rho = site_reduced_density(psi, dims, site)
+    op = torch.as_tensor(local_op(tuple(dims)[site], which), dtype=rho.dtype, device=rho.device)
+    return (rho * op.T).sum().real
 
 
 # ---------------------------------------------------------------------------

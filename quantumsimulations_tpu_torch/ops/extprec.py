@@ -455,3 +455,190 @@ def ext_split_upload_coo_pair_host(
         dense[:, idx] = limbs
         out.append(dense.reshape(L, dim, dim))
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# The Ozaki tier: float64-accurate products from exact int8 limb products
+# ---------------------------------------------------------------------------
+#
+# Port of the first part of ``quantumsimulations_tpu/ops/extprec.py``.  Each
+# float64 matrix is split into N_LIMBS integer limbs of LIMB_BITS bits on a
+# grid set by its own largest entry,
+#
+#     x = scale * sum_k l_k * 2^(-LIMB_BITS * k),  l_k integer, |l_k| <= 2^LIMB_BITS,
+#
+# each limb-pair product is an exact int8 GEMM, the pairs of one significance
+# diagonal are summed in int32 (exact), and only the weighted sum across the
+# diagonals runs in float64, smallest diagonal first.
+#
+# Bit-for-bit with the JAX package.  Its exponent, scale and diagonal
+# weights come from XLA's ``log2`` and ``exp2``, which are not exact: XLA
+# computes log2(x) as log(x) * (1 / ln 2) and exp2(e) as exp(e * ln 2), so a
+# "power of two" scale is off by a few ulp and the exponent of a maximum
+# just below (or at) a power of two can round either way.  :func:`_xla_floor_log2`
+# and :func:`_xla_exp2` repeat those operations on the host with the C
+# library's ``log`` and ``exp`` (which XLA's CPU backend matches on every
+# exponent a matrix can have), so the limbs, the scale and every product
+# equal the JAX package's on its CPU backend.  The digit sums are exact in
+# any order, so the diagonal's limb pairs run as one ``int_mm`` over a
+# concatenated K (the left operand's limbs side by side, the right
+# operand's in reversed limb order, as :func:`_ext_cpanel_product` lays
+# them out; the right operand K-contiguous for cuBLASLt's tensor-core
+# kernel).
+#
+# TPU workarounds that are no-ops here: the JAX package's ``_SYNC_ELEMS``
+# and the ``fetch_sync`` between the four real products of
+# :func:`cmatmul_f64` (they kept queued programs from reserving their limb
+# transients at once on a 16 GB TPU; torch runs the products in stream
+# order and its caching allocator reuses the freed blocks), and the jitted
+# ``_sub`` / ``_add`` helpers (one eager operation each here).
+
+import math  # noqa: E402
+
+LIMB_BITS = 5
+N_LIMBS = 11  # 11 * 5 = 55 bits >= float64's 53-bit significand
+_LN2 = 0.6931471805599453  # XLA's ln 2 constant
+_INV_LN2 = 1.4426950408889634  # XLA's folded 1 / ln 2
+
+
+def _xla_floor_log2(x: float) -> float:
+    """floor(log2(x)) as XLA computes it: floor(log(x) * (1 / ln 2))."""
+    return float(math.floor(math.log(x) * _INV_LN2))
+
+
+def _xla_exp2(e: float) -> float:
+    """exp2(e) as XLA computes it: exp(e * ln 2) (not exact at integers)."""
+    return math.exp(e * _LN2)
+
+
+def _limb_split(x: torch.Tensor, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_BITS):
+    """(limbs int8 (n_limbs, ...), scale) with x ~= sum_k limbs[k] * scale * 2^{-limb_bits*k}.
+
+    ``scale`` (a host float, the one host sync of a split) is XLA's
+    exp2(floor(log2 max|x|) + 1 - limb_bits), so max|x| / scale lies in
+    about [2^(limb_bits-1), 2^limb_bits).  A 2-D input's stack is a view of
+    an (M, n_limbs, K) buffer, the layout :func:`_cat_k` turns into the
+    concatenated-K GEMM operand without a copy."""
+    maxabs = float(x.abs().max()) if x.numel() else 0.0
+    safe = maxabs if maxabs > 0 else 1.0
+    e = _xla_floor_log2(safe) + 1.0 - limb_bits
+    scale, inv_scale = _xla_exp2(e), _xla_exp2(-e)
+    if x.dim() == 2:
+        buf = torch.empty((x.shape[0], n_limbs, x.shape[1]), dtype=torch.int8, device=x.device)
+        limbs = buf.permute(1, 0, 2)
+    else:
+        limbs = torch.empty((n_limbs,) + tuple(x.shape), dtype=torch.int8, device=x.device)
+    r = x.to(torch.float64) * inv_scale  # |r| < 2^limb_bits
+    for k in range(n_limbs):
+        lk = torch.round(r)  # half to even, as jnp.rint
+        limbs[k] = lk.to(torch.int8)
+        r = (r - lk) * float(2**limb_bits)
+    return limbs, scale
+
+
+def _check_i32(K: int, n_limbs: int, limb_bits: int) -> None:
+    """int32 accumulation: K-sums and diagonal sums must stay below 2^31."""
+    if K * (2 ** (2 * limb_bits)) * n_limbs >= 2**31:
+        raise ValueError(f"contraction dim {K} overflows int32 at {n_limbs} limbs of "
+                         f"{limb_bits} bits")
+
+
+def _accumulate_products(A, B, out_shape, n_limbs: int, limb_bits: int):
+    """sum_s 2^(-limb_bits*s) * (sum_k A[k] @ B[s-k]) for limb stacks A
+    (n_limbs, M, K) and B (n_limbs, K, N), before the scales: the float64
+    sum over the diagonals smallest first (the rounding the JAX package's
+    ``_accumulate_products`` has: a few ulp of the result).  The callers
+    multiply by the scales as the JAX package's compiled programs do
+    (:func:`_scale_product`)."""
+    K = A.shape[2]
+    if K % 16:
+        # zero limbs add nothing; a K of whole 16-byte rows keeps every
+        # GEMM operand's row stride and start aligned, as cuBLASLt's int8
+        # GEMM requires (a stride of n * 257 bytes is refused)
+        pad = 16 - K % 16
+        A = torch.nn.functional.pad(A, (0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        K += pad
+    left = _cat_k(A)  # (M, n*K): limb j at columns [j*K, (j+1)*K)
+    right = _right_rev(B)  # (N, n*K): limb i at columns [(n-1-i)*K, (n-i)*K)
+    out = torch.zeros(out_shape, dtype=torch.float64, device=A.device)
+    for s in range(n_limbs - 1, -1, -1):
+        acc = int_mm(left[:, : (s + 1) * K], right[:, (n_limbs - 1 - s) * K:].t())
+        out = out + acc.to(torch.float64) * _xla_exp2(float(-limb_bits * s))
+    return out
+
+
+def _exponent(scale: float) -> float:
+    """The integer e of a split's scale exp(e * ln 2)."""
+    return float(round(math.log2(scale)))
+
+
+def _scale_product(sa: float, sb: float) -> float:
+    """sa * sb where both scales were computed in the same XLA program as
+    the product (``matmul_f64``): XLA's simplifier turns exp(x) * exp(y)
+    into exp(x + y), and its CPU code contracts the exponent sum
+    ea * ln 2 + eb * ln 2 into one fused multiply-add."""
+    ea, eb = _exponent(sa), _exponent(sb)
+    return math.exp(float(Fraction(ea) * Fraction(_LN2) + Fraction(eb * _LN2)))
+
+
+def matmul_f64(a: torch.Tensor, b: torch.Tensor, n_limbs: int = N_LIMBS,
+               limb_bits: int = LIMB_BITS) -> torch.Tensor:
+    """float64-precision a @ b via error-free int8 limb products."""
+    if a.dtype != torch.float64 or b.dtype != torch.float64:
+        raise TypeError(f"matmul_f64 takes float64 operands, got {a.dtype} and {b.dtype}")
+    _check_i32(a.shape[-1], n_limbs, limb_bits)
+    A, sa = _limb_split(a, n_limbs, limb_bits)
+    B, sb = _limb_split(b, n_limbs, limb_bits)
+    out = _accumulate_products(A, B, (a.shape[0], b.shape[1]), n_limbs, limb_bits)
+    return out * _scale_product(sa, sb)
+
+
+def limbs_of(a: torch.Tensor, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_BITS):
+    """Split a reused left operand once (a step operator applied to many
+    state blocks): ``(limbs, scale)`` for :func:`matmul_f64_prelimbed`."""
+    _check_i32(a.shape[-1], n_limbs, limb_bits)
+    return _limb_split(a, n_limbs, limb_bits)
+
+
+def matmul_f64_prelimbed(A, sa: float, b: torch.Tensor, n_limbs: int = N_LIMBS,
+                         limb_bits: int = LIMB_BITS) -> torch.Tensor:
+    """(pre-limbed A) @ b."""
+    B, sb = _limb_split(b, n_limbs, limb_bits)
+    return _accumulate_products(A, B, (A.shape[1], b.shape[1]), n_limbs, limb_bits) * (sa * sb)
+
+
+def cmatmul_f64(a_re, a_im, b_re, b_im, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_BITS):
+    """float64-precision complex product on (re, im) planes: four real
+    limb products, re = rr - ii and im = ri + ir, as the JAX package.  Each
+    plane is split once and its limbs reused by both products it enters
+    (a split is deterministic, so the values are the JAX package's)."""
+    for x in (a_re, a_im, b_re, b_im):
+        if x.dtype != torch.float64:
+            raise TypeError(f"cmatmul_f64 takes float64 planes, got {x.dtype}")
+    _check_i32(a_re.shape[-1], n_limbs, limb_bits)
+    shape = (a_re.shape[0], b_re.shape[1])
+    Ar, sar = _limb_split(a_re, n_limbs, limb_bits)
+    Ai, sai = _limb_split(a_im, n_limbs, limb_bits)
+    Br, sbr = _limb_split(b_re, n_limbs, limb_bits)
+    Bi, sbi = _limb_split(b_im, n_limbs, limb_bits)
+    return _cmatmul_split((Ar, sar), (Ai, sai), (Br, sbr), (Bi, sbi), shape, n_limbs, limb_bits)
+
+
+def _cmatmul_split(Ar, Ai, Br, Bi, shape, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_BITS):
+    """:func:`cmatmul_f64` on planes already split: each argument a
+    ``(limbs, scale)`` pair."""
+    def mm(x, y):
+        out = _accumulate_products(x[0], y[0], shape, n_limbs, limb_bits)
+        return out * _scale_product(x[1], y[1])
+
+    c_re = mm(Ar, Br) - mm(Ai, Bi)
+    return c_re, mm(Ar, Bi) + mm(Ai, Br)
+
+
+def cmatmul_f64_cplx(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`cmatmul_f64` on complex128 tensors (the JAX package's
+    ``Cplx`` pairs are complex tensors in this port)."""
+    re, im = cmatmul_f64(a.real.contiguous(), a.imag.contiguous(),
+                         b.real.contiguous(), b.imag.contiguous(), **kw)
+    return torch.complex(re, im)

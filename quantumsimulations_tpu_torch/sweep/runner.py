@@ -16,13 +16,16 @@ points whose metrics.json already exists.
 Differences from the JAX package's runner:
   * ``device=`` picks the torch device (default "cuda"; never a silent CPU
     fallback).
-  * Of the stepping solvers the JAX runner solves one by one, "ext" (with
-    mid-solve snapshots under ``<base_dir>/.solver_ckpt/simNNNN``, cleared
-    as each solve succeeds), "krylov" and "chebyshev" are ported
-    (:func:`_solve_one_stepping`); expm and dopri raise NotImplementedError
-    before anything is written.  As in the JAX package, "cheb_step" (like "auto")
-    is solved on the batched eigendecomposition route.  ``mesh`` (the
-    data-parallel sharded batch) raises too (ROADMAP.md queue 1 item 5).
+  * The stepping solvers are solved one by one, as in the JAX runner
+    (:func:`_solve_one_stepping`): "expm" (the dense complex128 step
+    operator at every dim, as the JAX runner does), "ext" (with mid-solve
+    snapshots under ``<base_dir>/.solver_ckpt/simNNNN``, cleared as each
+    solve succeeds), "krylov", "chebyshev" and "dopri" (at its default
+    tolerances, as the JAX runner calls it).  As in the JAX package,
+    "cheb_step" (like "auto") is solved on the batched eigendecomposition
+    route.  ``mesh`` (the data-parallel sharded batch) raises
+    NotImplementedError before anything is written (ROADMAP.md queue 1
+    item 5).
   * matplotlib is imported only when ``make_plots`` is on, so a sweep
     without plots runs where matplotlib is not installed.  (With plots off
     the reference opens an empty PdfPages, which writes no file, so the
@@ -90,6 +93,20 @@ def _solve_one_stepping(
     (dynamics/checkpoint.py)."""
     args = (model.hamiltonian, model.psi0, times, model.dims,
             model.n_sea_effective, model.idx_rare)
+    if method in ("expm", "dopri"):
+        from ..dynamics.observables import assemble_traces
+
+        if method == "expm":
+            from ..dynamics.expm_propagator import expm_propagate_traces
+
+            out = expm_propagate_traces(*args[:4], device=device)
+        else:
+            from ..dynamics.dopri import dopri_propagate_traces
+
+            out = dopri_propagate_traces(*args[:4], device=device)
+        tr = assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective, model.idx_rare)
+        tr["energy"] = out.get("energy", np.zeros_like(out["norm"]))
+        return tr
     if method == "ext":
         from ..dynamics.expm_propagator import expm_traces_assembled_ext
 
@@ -119,7 +136,7 @@ def _solve_group(
     """
     method = "eig" if solver_method == "auto" else solver_method
     check_method(method)
-    if method in ("ext", "krylov", "chebyshev"):
+    if method in ("expm", "ext", "krylov", "chebyshev", "dopri"):
         ckpt_dirs = ckpt_dirs or [None] * len(models)
         return [_solve_one_stepping(m, times, method, ckpt_dir=ck, device=device)
                 for m, ck in zip(models, ckpt_dirs)]

@@ -250,9 +250,13 @@ def test_auto_route_and_default_tier():
 
 
 def test_limb_tier_raises_naming_roadmap_item():
+    """The "limb" tier is ported (its parity tests:
+    tests/test_torch_split_apply_limb.py): it runs and agrees with f64."""
     _, args = _n4()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        tcs.chebyshev_step_traces(*args, arithmetic="limb", device="cpu")
+    rows = tcs.chebyshev_step_traces(*args[:2], args[2][:3], *args[3:], arithmetic="limb",
+                                     device="cpu")
+    f64 = tcs.chebyshev_step_traces(*args[:2], args[2][:3], *args[3:], device="cpu")
+    assert np.abs(rows[:7] - f64[:7]).max() <= 1e-12
 
 
 def test_engine_cache_reuse_and_clear():

@@ -23,7 +23,14 @@ plain version, 1e-5 of the output's largest magnitude (both sum the same
 float32 products in float64, in another order; two calls equal bit for bit);
 the matrix-free krylov and chebyshev routes on the card
 against the CPU, 1e-12 (the same float64 operations, reduced in another
-order).
+order); the Ozaki limb products on the card against the CPU, equal bit for
+bit (exact int8 GEMMs, the same float64 operations in the same order); the
+dense and Ozaki expm routes on the card against the CPU, 1e-12; dopri and
+the lab frame on the card against the CPU at atol 1e-12, rtol 1e-11, 1e-9
+(the step sequences may differ by a step where an error norm sits within
+rounding of a decision);
+the limb tier against the f64 tier on the card, 1e-11, and against the CPU,
+1e-12.
 """
 
 import numpy as np
@@ -450,3 +457,75 @@ def test_matrix_free_routes_on_card_equal_cpu(cuda_device, route):
     assert np.abs(card[:7] - cpu[:7]).max() <= 1e-12
     assert abs(card[7, 0] - cpu[7, 0]) <= 1e-12 * abs(cpu[7, 0])
     assert np.abs(card[6] - 1.0).max() < 1e-12
+
+
+# ---------------------------------------------------------------------------
+# The solvers without a hand-written kernel (the expm routes, dopri, the lab
+# frame, the limb tier) on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+_SMALL = dict(
+    n_sea=3, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
+    B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
+    omega_rf_sea=8.1812e7 * 3.0 - 2 * np.pi * 900.0, omega_rf_rare=6.976e7 * 3.0,
+    phi_sea=np.pi / 2, phi_rare=np.pi / 2, dipolar_scale=1e-7 * 1.054571817e-34,
+    shell_scale=0.282393e-9, drive_sea=True, drive_rare=True, is_spin_three_half=False,
+)
+
+
+def test_ozaki_products_on_card_equal_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    planes = [rng.standard_normal((300, 257)) * 1e3, rng.standard_normal((300, 257)),
+              rng.standard_normal((257, 130)) * 1e-4, rng.standard_normal((257, 130))]
+    card = ep.cmatmul_f64(*(torch.as_tensor(p, device=cuda_device) for p in planes))
+    cpu = ep.cmatmul_f64(*(torch.as_tensor(p) for p in planes))
+    for g, w in zip(card, cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("route", ["dense", "ozaki"])
+def test_expm_routes_on_card_equal_cpu(cuda_device, route):
+    m = build_model(DipolarRareParams(**_SMALL))
+    t = np.linspace(0.0, 4e-4, 37)
+    if route == "dense":
+        card = tep.expm_propagate_traces(m.hamiltonian, m.psi0, t, m.dims, block=8, device=cuda_device)
+        cpu = tep.expm_propagate_traces(m.hamiltonian, m.psi0, t, m.dims, block=8, device="cpu")
+        assert np.abs(card["site_xyz"] - cpu["site_xyz"]).max() <= 1e-12
+        assert np.abs(card["norm"] - 1.0).max() <= 1e-11
+        return
+    args = (m.hamiltonian, m.psi0, t, m.dims, m.n_sea_effective, m.idx_rare)
+    card = tep.expm_traces_assembled_ozaki(*args, block=8, device=cuda_device)
+    cpu = tep.expm_traces_assembled_ozaki(*args, block=8, device="cpu")
+    assert np.abs(card[:7] - cpu[:7]).max() <= 1e-12
+
+
+def test_dopri_and_lab_frame_on_card_equal_cpu(cuda_device):
+    from quantumsimulations_tpu_torch.dynamics import dopri as tdop
+    from quantumsimulations_tpu_torch.models import labframe as tlab
+
+    m = build_model(DipolarRareParams(**_SMALL))
+    t = np.linspace(0.0, 1e-4, 11)
+    tight = dict(atol=1e-12, rtol=1e-11)
+    card = tdop.dopri_propagate_traces(m.hamiltonian, m.psi0, t, m.dims, device=cuda_device, **tight)
+    cpu = tdop.dopri_propagate_traces(m.hamiltonian, m.psi0, t, m.dims, device="cpu", **tight)
+    assert abs(card["n_accepted"] - cpu["n_accepted"]) <= 1
+    assert np.abs(card["site_xyz"] - cpu["site_xyz"]).max() <= 1e-9
+    lab_kw = dict(_SMALL, n_sea=2, gamma_sea=1e5, gamma_rare=8e4, B0_sea=1.0, B0_rare=1.0,
+                  B1_sea=2 * np.pi * 1e3 / 1e5, B1_rare=2 * np.pi * 1e3 / 8e4,
+                  t_final=2e-4, steps=9)
+    tight = dict(atol=1e-12, rtol=1e-11)  # the lab-frame tests' tolerances
+    _, lab_card = tlab.simulate_lab_frame(DipolarRareParams(**lab_kw), device=cuda_device, **tight)
+    _, lab_cpu = tlab.simulate_lab_frame(DipolarRareParams(**lab_kw), device="cpu", **tight)
+    for key in lab_cpu:
+        assert np.abs(lab_card[key] - lab_cpu[key]).max() <= 1e-9, key
+
+
+def test_limb_tier_on_card_within_bound_of_f64(cuda_device):
+    m = build_model(DipolarRareParams(**dict(_SMALL, n_sea=4)))
+    t = np.linspace(0.0, 1e-4, 3)
+    args = (m.hamiltonian, m.psi0, t, m.dims, m.n_sea_effective, m.idx_rare)
+    limb = tcs.chebyshev_step_traces(*args, arithmetic="limb", device=cuda_device)
+    f64 = tcs.chebyshev_step_traces(*args, arithmetic="f64", device=cuda_device)
+    cpu = tcs.chebyshev_step_traces(*args, arithmetic="limb", device="cpu")
+    assert np.abs(limb[:7] - f64[:7]).max() <= 1e-11
+    assert np.abs(limb[:7] - cpu[:7]).max() <= 1e-12

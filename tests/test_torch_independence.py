@@ -52,8 +52,11 @@ def _probe(imports: str) -> tuple[list[str], bool]:
         "import chip_smoke",
         "import quantumsimulations_tpu_torch.ops.extprec, quantumsimulations_tpu_torch.ops.ext_obs, "
         "quantumsimulations_tpu_torch.dynamics.expm_propagator",
+        "import quantumsimulations_tpu_torch.dynamics.dopri, quantumsimulations_tpu_torch.models.labframe, "
+        "quantumsimulations_tpu_torch.cli.simulate, quantumsimulations_tpu_torch.ops.split_apply_limb, "
+        "quantumsimulations_tpu_torch.utils.cache, quantumsimulations_tpu_torch.utils.profiling",
     ],
-    ids=["every_port_module", "chip_smoke", "ext_route_modules"],
+    ids=["every_port_module", "chip_smoke", "ext_route_modules", "solver_and_cli_modules"],
 )
 def test_no_jax_and_no_reference_package(imports):
     assert _probe(imports)[0] == []
@@ -64,8 +67,9 @@ def test_no_jax_and_no_reference_package(imports):
     [
         "import quantumsimulations_tpu_torch, quantumsimulations_tpu_torch.cli.sweep",
         "import chip_smoke",
+        "import quantumsimulations_tpu_torch.cli.simulate",
     ],
-    ids=["package_and_cli", "chip_smoke"],
+    ids=["package_and_cli", "chip_smoke", "simulate_cli"],
 )
 def test_sweep_without_plots_needs_no_matplotlib(imports):
     assert _probe(imports) == ([], False)

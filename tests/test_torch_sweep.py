@@ -178,8 +178,12 @@ def test_each_sweep_gets_its_own_directory(tmp_path, monkeypatch):
 
 
 def test_unported_solver_writes_nothing(tmp_path):
+    """Every solver is ported now; what is not (the sharded sweep, mesh=)
+    and an unknown solver raise before anything is written."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsweep(**SWEEP, solver_method="dopri", base_dir=str(tmp_path / "x"), device="cpu")
+        tsweep(**SWEEP, mesh=object(), base_dir=str(tmp_path / "x"), device="cpu")
+    with pytest.raises(ValueError, match="unknown solver_method"):
+        tsweep(**SWEEP, solver_method="bogus", base_dir=str(tmp_path / "x"), device="cpu")
     assert not (tmp_path / "x").exists()
 
 
@@ -208,6 +212,26 @@ def test_ext_sweep_tree_and_values_match(ext_sweep_pair):
         assert np.array_equal(got["t"], want["t"])
         for key in want.files:
             assert np.abs(got[key] - want[key]).max() <= 1e-12, (name, key)
+
+
+@pytest.mark.parametrize("solver,atol", [("expm", 1e-10), ("dopri", 1e-9)])
+def test_expm_and_dopri_sweeps_match(tmp_path, solver, atol):
+    """The sweep runner routes "expm" (dense, at every dim) and "dopri" (at
+    its default tolerances) one simulation at a time, as the JAX runner:
+    the same tree and the same traces (dopri: 1e-9, the port-vs-JAX bar of
+    its solver tests)."""
+    cfg = dict(SWEEP, sea_detunings_Hz=[25_000.0], t_final=2e-4, steps=21, solver_method=solver)
+    port = tsweep(**cfg, base_dir=str(tmp_path / "port"), device="cpu")
+    ref = jsweep(**cfg, base_dir=str(tmp_path / "ref"))
+    tree = _tree(port)
+    assert tree == _tree(ref)
+    names = sorted(p for p in tree if p.endswith(".npz") and "time_and_obs" in p)
+    assert len(names) == 3
+    for name in names:
+        got, want = np.load(os.path.join(port, name)), np.load(os.path.join(ref, name))
+        assert set(got.files) == set(want.files)
+        for key in want.files:
+            assert np.abs(got[key] - want[key]).max() <= atol, (name, key)
 
 
 def test_ext_sweep_resumes_inside_a_solve(tmp_path, monkeypatch):
