@@ -94,7 +94,17 @@ Phases, each printing one line as it finishes:
  18. E: the "limb" tier of the n13 stepper over LIMB_STEPS output steps,
      within LIMB_ATOL of phase 9's f64 rows, with steps/s, applies/s and
      the device kernels of one apply (torch.profiler);
- 19. a JSON line with the solver phases' numbers, and one with every
+ 19. F: the 2D amplitude x detuning grid through the port's sweep2d CLI at
+     its defaults (f1A 10, 20 and 50 kHz, each row phase 7's sweep: 3 x 39
+     evolutions at dim 128 over 30 s / 20,000 steps; plots and report off):
+     three row directories, each passing phase 7's artifact and invariant
+     checks, the 50 kHz row's traces equal to phase 7's bit for bit, the
+     other rows within ORACLE_ATOL of the longdouble oracle; then the
+     post-processing on its tree: aggregation (equal to the summaries'
+     finite rows), the stable-region statistics (written to the root), and
+     per row ``reprocess_sweep`` at the original window (equal to its
+     summary.json) and at window 35, and ``reprocess_exponential``;
+ 20. a JSON line with the solver phases' numbers, and one with every
      kernel's launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -1427,6 +1437,147 @@ def oracle_check(base_dir: str, traces: dict) -> float:
     return float(np.abs(tr["Iz_sea"][idx] - want).max())
 
 
+def _same(a: float, b: float) -> bool:
+    return a == b or (a != a and b != b)
+
+
+def grid2d(tmp: str, phase7: dict) -> dict:
+    """Phase F: the 2D amplitude x detuning grid through the port's sweep2d
+    CLI at its defaults (3 rows x 13 detunings x 3 variants, dim 128, 30 s,
+    20,000 steps; plots and report off), then the post-processing that reads
+    its tree.
+
+    Checks: three row directories (named to the second; a row that starts
+    within the second of the previous one must not share its directory), each passing phase 7's artifact and invariant checks; the
+    50 kHz row, which has phase 7's parameters, equal to phase 7's traces
+    bit for bit; the other rows within ORACLE_ATOL of the longdouble oracle;
+    ``aggregate_points`` equal to the finite rows of the three summaries;
+    the stable-region counts summing to the points; ``reprocess_sweep`` at
+    the original window equal to each summary.json, NaN for NaN; 13 rows from
+    window 35 and from ``reprocess_exponential``.
+    """
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.analysis.aggregate import aggregate_points
+    from quantumsimulations_tpu_torch.analysis.stable_region import stable_region_stats
+    from quantumsimulations_tpu_torch.artifacts.writer import json_dump
+    from quantumsimulations_tpu_torch.cli.sweep2d import main as sweep2d_main
+    from quantumsimulations_tpu_torch.sweep.reprocess import reprocess_sweep
+    from quantumsimulations_tpu_torch.sweep.reprocess_exponential import reprocess_exponential
+
+    root, log = os.path.join(tmp, "grid2d"), os.path.join(tmp, "grid2d.log")
+    t_start = time.time()
+    t0 = time.perf_counter()
+    with open(log, "w", encoding="utf-8") as f, contextlib.redirect_stdout(f):
+        sweep2d_main(["--no-plots", "--skip-report", "--out-root", root, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    names = sorted(os.listdir(root))
+    if len(names) != 3 or not all(n.startswith("sea_detuning_sweep_") for n in names):
+        raise AssertionError(f"grid2d root holds {names}, want three sweep directories (one "
+                             "per row: rows named to the second merged into one)")
+    rows, summaries = {}, []
+    for n in names:
+        d = os.path.join(root, n)
+        with open(os.path.join(d, "summary.json"), encoding="utf-8") as f:
+            summaries.append(json.load(f))
+        rows[summaries[-1]["global_params"]["f1A_Hz"]] = (d, summaries[-1])
+    if sorted(rows) != [10e3, 20e3, 50e3]:
+        raise AssertionError(f"grid2d rows at f1A {sorted(rows)}, want 10, 20, 50 kHz")
+
+    # per-row split: build and solve from each row's timings.json, eigh and
+    # traces from its "[solve]" log line, the row's wall from the times its
+    # timings.json (the last file a row writes) was written
+    with open(log, encoding="utf-8") as f:
+        solve = [ln.split() for ln in f if "[solve]" in ln]
+    if len(solve) != 3:
+        raise AssertionError(f"grid2d log has {len(solve)} [solve] lines, want one per row")
+    per_row, t_prev = {}, t_start
+    for (f1A, (d, _)), w in zip(sorted(rows.items(), key=lambda kv: kv[1][0]), solve):
+        with open(os.path.join(d, "timings.json"), encoding="utf-8") as f:
+            st = {k: v["seconds"] for k, v in json.load(f).items()}
+        t_end = os.path.getmtime(os.path.join(d, "timings.json"))
+        st["eigh"] = float(w[w.index("eigh") + 1].rstrip("s"))
+        st["traces"] = float(w[w.index("traces") + 1].rstrip("s"))
+        st["artifacts_and_rest"] = (t_end - t_prev) - st["build_models"] - st["solve"]
+        per_row[f"{f1A / 1e3:g}kHz"] = {"wall_s": t_end - t_prev, "stages_s": st}
+        t_prev = t_end
+
+    norm_dev, oracle_err = 0.0, {}
+    for f1A, (d, _) in sorted(rows.items()):
+        tr = load_traces(d)
+        norm_dev = max(norm_dev, max(float(np.abs(t["state_norm"] - 1.0).max())
+                                     for t in tr.values()))
+        iz0 = [t["Iz_sea"][0] for (_, tag), t in tr.items() if tag == "center_off"]
+        if not np.allclose(iz0, -3.0, rtol=0, atol=1e-12):
+            raise AssertionError(f"grid2d {f1A:g} Hz: center_off Iz_sea[0] = {iz0}, want -3")
+        if f1A == 50e3:
+            if tr.keys() != phase7.keys():
+                raise AssertionError("grid2d 50 kHz row and phase 7 wrote different trees")
+            diff = {key: float(np.abs(tr[key][k] - phase7[key][k]).max())
+                    for key in tr for k in tr[key] if not np.array_equal(tr[key][k], phase7[key][k])}
+            if diff:
+                raise AssertionError(f"grid2d 50 kHz row differs from phase 7's traces: {diff}")
+        else:
+            oracle_err[f"{f1A / 1e3:g}kHz"] = oracle_check(d, tr)
+    if not norm_dev < 1e-12:
+        raise AssertionError(f"grid2d: max |state_norm - 1| = {norm_dev:.3e}")
+    if not max(oracle_err.values()) <= ORACLE_ATOL:
+        raise AssertionError(f"grid2d: Iz_sea vs host oracle {oracle_err} > {ORACLE_ATOL:g}")
+
+    t0 = time.perf_counter()
+    pts = aggregate_points(root)
+    want = {k: [] for k in pts}
+    for summary in summaries:  # in the sorted order aggregate_points walks them
+        f1A = summary["global_params"]["f1A_Hz"]
+        for r in summary["sweep_results"]:
+            vals = (r["DeltaOmega_over_geff"], r["contrast_rare_center"], r["delta_Hz"])
+            if all(np.isfinite(vals)):
+                ds = abs(r["I_z_slope_on_center"] - r["I_z_slope_off_center"])
+                for k, v in zip(("eta", "contrast", "delta_Hz", "f1A_Hz", "abs_delta_slope"),
+                                vals + (f1A, ds)):
+                    want[k].append(v)
+    for k in pts:
+        if not np.array_equal(pts[k], np.asarray(want[k], dtype=float), equal_nan=True):
+            raise AssertionError(f"grid2d aggregate_points[{k!r}] differs from the summaries' rows")
+    stats = stable_region_stats(pts["delta_Hz"] / pts["f1A_Hz"], pts["contrast"],
+                                c_min=0.2, p_min=0.8, bin_decimals=3)
+    json_dump(os.path.join(root, "stable_region_stats.json"), stats)
+    if sum(b["n"] for b in stats["per_bin"]) != len(pts["eta"]):
+        raise AssertionError("grid2d stable-region bin counts do not sum to the points")
+    t_aggregate = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    statuses: dict[str, int] = {}
+    for f1A, (d, summary) in sorted(rows.items()):
+        with open(reprocess_sweep(d, 0), encoding="utf-8") as f:
+            again = json.load(f)["sweep_results"]
+        if len(again) != len(summary["sweep_results"]):
+            raise AssertionError(f"grid2d {f1A:g} Hz: reprocess wrote {len(again)} rows")
+        for new, old in zip(again, summary["sweep_results"]):
+            bad = [k for k in old if not _same(new[k], old[k])]
+            if bad:
+                raise AssertionError(f"grid2d {f1A:g} Hz, {old['delta_Hz']} Hz: reprocessing at "
+                                     f"the original window changed {bad}")
+        with open(reprocess_sweep(d, 35), encoding="utf-8") as f:
+            n35 = len(json.load(f)["sweep_results"])
+        with open(reprocess_exponential(d, make_plots=False), encoding="utf-8") as f:
+            exp_rows = json.load(f)["rows"]
+        if n35 != 13 or len(exp_rows) != 13:
+            raise AssertionError(f"grid2d {f1A:g} Hz: {n35} rows at window 35, "
+                                 f"{len(exp_rows)} exponential rows, want 13")
+        for r in exp_rows:
+            for side in ("off", "on"):
+                statuses[r[f"status_{side}"]] = statuses.get(r[f"status_{side}"], 0) + 1
+    t_reprocess = time.perf_counter() - t0
+    return {"wall_s": wall, "rows": per_row, "norm_dev": norm_dev, "vs_oracle": oracle_err,
+            "n_points": len(pts["eta"]), "best_region": stats["best_region"],
+            "aggregate_s": t_aggregate, "reprocess_s": t_reprocess,
+            "exponential_statuses": statuses}
+
+
 def main() -> int:
     import torch
 
@@ -1455,7 +1606,7 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    say("[1/19] card (nvidia-smi name, power.limit):")
+    say("[1/20] card (nvidia-smi name, power.limit):")
     say(smi)
     peaks = card_peaks(name)
     say(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, peaks from the "
@@ -1469,14 +1620,14 @@ def main() -> int:
     built = build_all(extra_flags=("-Xptxas", "-v"))
     for kname, (out, sec) in built.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        say(f"[2/19] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
+        say(f"[2/20] built {kname} in {sec:.2f} s; ptxas: {' | '.join(report)}")
     say(f"      all {len(built)} builds (in parallel): {time.perf_counter() - t0:.2f} s")
 
     main_shape = (39, 128, 128, 1680)
     at_main = check_cmatmul(main_shape, peaks, seed=1)
     at_large = check_cmatmul((1, 2048, 2048, 1024), peaks, seed=2)
     for r in (at_main, at_large):
-        say(f"[3/19] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
+        say(f"[3/20] cmatmul_f32 {tuple(r['shape'])}: rel err {r['max_rel_err']:.3e} "
             f"(bound {KERNEL_REL_TOL:g}), device ms per call: kernel {r['ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library (complex64 matmul) {r['library_ms']:.4f}; eager call "
             f"{r['call_ms']:.4f} ms; 3xTF32 bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -1485,7 +1636,7 @@ def main() -> int:
     limb = {}
     for i, lname in enumerate(LIMB_SHAPES):
         r = limb[lname] = check_limb(lname, peaks, seed=10 + i)
-        say(f"[4/19] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
+        say(f"[4/20] limb_matmul_canon {lname} {r['shape'][0]}@{r['shape'][1]}"
             f"{' transpose_out' if r['transpose_out'] else ''}: equal to plain bit for bit (two "
             f"calls), plan {r['plan']}; device ms per call: kernel {r['ms']:.4f}, 12 "
             f"torch._int_mm digit products (no carry) {r['int_mm_digits_ms']:.4f}, f64 matmul of "
@@ -1514,7 +1665,7 @@ def main() -> int:
     say(f"      built {EXT_OBS_SIMT_SRC} (kernel 3's SIMT design, for phase 5) in {simt_s:.2f} s")
     for i, shape in enumerate(EXT_OBS_SHAPES):
         r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
-        say(f"[5/19] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
+        say(f"[5/20] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
             f"call: kernel {r['ms']:.4f}, SIMT design {r['simt_ms']:.4f} (same call, in turns: "
             f"{r['ms_turns']}, {r['simt_ms_turns']}); eager call {r['call_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -1529,7 +1680,7 @@ def main() -> int:
     zexp = {}
     for i, zshape in enumerate(ZEXP_SHAPES):
         r = zexp[zshape] = check_zexp(zshape, peaks, seed=30 + i)
-        say(f"[6/19] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
+        say(f"[6/20] z_expectations_f32 {zshape}: rel err {r['max_rel_err']:.3e} (bound "
             f"{KERNEL_REL_TOL:g}; the float32 chain {r['chain_rel_err']:.3e}), "
             f"{r['bit_equal_share']:.4f} of outputs equal to plain bit for bit, two calls "
             f"equal; plan {r['plan']}; device ms per call: kernel {r['ms']:.5f}, plain "
@@ -1554,7 +1705,7 @@ def main() -> int:
         oracle_err = oracle_check(dir64, tr64)
         if not oracle_err <= ORACLE_ATOL:
             raise AssertionError(f"eig: Iz_sea vs host oracle {oracle_err:.3e} > {ORACLE_ATOL:g}")
-        say(f"[7/19] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
+        say(f"[7/20] eig sweep (39 sims, dim 128, 20000 steps): {run64['wall_s']:.2f} s wall "
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
@@ -1572,7 +1723,7 @@ def main() -> int:
         )
         if not diff <= EIG32_ATOL:
             raise AssertionError(f"eig32 vs eig: {diff:.3e} > {EIG32_ATOL:g}")
-        say(f"[8/19] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
+        say(f"[8/20] eig32 sweep: {run32['wall_s']:.2f} s wall {_split(run32)}; "
             f"max |eig32 - eig| {diff:.2e} "
             f"(bound {EIG32_ATOL:g}); launches {launches_eig32}")
 
@@ -1613,7 +1764,7 @@ def main() -> int:
         sim_vs_f64 = float(np.abs(rows_sim - f64["rows"][:7]).max())
         if not sim_vs_f64 <= 1e-12:
             raise AssertionError(f"n13: simulate_rare vs chebyshev_step_traces f64 {sim_vs_f64:.3e}")
-        say(f"[9/19] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
+        say(f"[9/20] n13 {shape}: simulate_rare (auto -> cheb_step, f64 on cuda) "
             f"{sim_wall:.2f} s wall, launches {launches_sim}; timed f64 run "
             f"{f64['wall_s']:.2f} s {f64['stages_s']}, {T / f64['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / f64['stages_s']['stepping']:.1f} applies/s; host set-up {setup}; "
@@ -1636,7 +1787,7 @@ def main() -> int:
                  for tier, r in (("f64", f64), ("extp", extp))}
         if not max(o_err.values()) <= N13_ORACLE_ATOL:
             raise AssertionError(f"n13 vs expm_multiply oracle at t=dt: {o_err} > {N13_ORACLE_ATOL:g}")
-        say(f"[10/19] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
+        say(f"[10/20] n13 extp: {extp['wall_s']:.2f} s {extp['stages_s']}, "
             f"{T / extp['stages_s']['stepping']:.4f} steps/s, "
             f"{T * (K - 1) / extp['stages_s']['stepping']:.1f} applies/s, "
             f"{n_launch} limb_matmul_canon launches ({6 * (K - 1)} per step); limb split of the "
@@ -1648,7 +1799,7 @@ def main() -> int:
 
         n12 = n12_ext(oracles[12])
         st = n12["stages_s"]
-        say(f"[11/19] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
+        say(f"[11/20] n12 ext (dim 8192, {N12_STEPS} steps, production dt): simulate_rare "
             f"(auto -> ext) {n12['wall_s']:.2f} s wall, stages {st}; n_sq {n12['n_sq']}: "
             f"{n12['products']} (8192)^3 ext products, {n12['s_per_product']:.3f} s each "
             f"(int8 tensor-core bound {n12['product_bound_s']:.3f} s); launches "
@@ -1658,7 +1809,7 @@ def main() -> int:
             f"{n12['oracle_s']:.1f} s on the host)")
 
         kry = n12_krylov(n12)
-        say(f"[12/19] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
+        say(f"[12/20] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
             f"simulate_rare {kry['wall_s']:.2f} s wall, n_sub {kry['n_sub']} per output step "
             f"(norm bound {kry['norm_bound']:.6e} rad/s), {kry['substeps']} substeps, "
             f"{kry['s_per_substep']:.5f} s per substep, {kry['applies_per_s']:.1f} applies/s; "
@@ -1671,7 +1822,7 @@ def main() -> int:
 
         cheb = n13_chebyshev(f64["rows"], o_rows, peaks)
         zp = cheb["zexp"]
-        say(f"[13/19] n13 chebyshev (dim 16384, {CHEB_STEPS} output steps, t_final "
+        say(f"[13/20] n13 chebyshev (dim 16384, {CHEB_STEPS} output steps, t_final "
             f"{N13_DT * (CHEB_STEPS - 1):.6f} s): lambda {cheb['lambda']:.6e} rad/s, K "
             f"{cheb['K']}, sweep {cheb['sweep_s']:.2f} s, {cheb['s_per_apply'] * 1e3:.4f} ms per "
             f"apply, {cheb['applies_per_s']:.1f} applies/s; simulate_rare (chebyshev) "
@@ -1690,27 +1841,27 @@ def main() -> int:
 
         # ---- phases A-E: the solvers ported after the kernels ----
         expm = dense_expm()
-        say(f"[14/19] A. dense expm (n_sea 6, dim 128, {len(expm['t'])} steps over 30 s, the "
+        say(f"[14/20] A. dense expm (n_sea 6, dim 128, {len(expm['t'])} steps over 30 s, the "
             f"simulate CLI's production parameters): simulate_rare(expm) {expm['wall_s']:.2f} s "
             f"wall (eig route {expm['eig_wall_s']:.2f} s); vs eig {expm['vs_eig']:.2e} (bound "
             f"{EXPM_ATOL:g}); max|norm-1| {expm['norm_dev']:.2e} (bound {EXPM_NORM_ATOL:g}); "
             f"launches {expm['launches']}")
         dop = dopri_rotating()
-        say(f"[15/19] B. dopri, rotating frame (n_sea 6, t_final {DOPRI_T_FINAL:g} s, "
+        say(f"[15/20] B. dopri, rotating frame (n_sea 6, t_final {DOPRI_T_FINAL:g} s, "
             f"{DOPRI_STEPS} outputs, atol/rtol {DOPRI_TOL}): {dop['wall_s']:.2f} s wall, "
             f"n_accepted {dop['n_accepted']}, n_rejected {dop['n_rejected']}, "
             f"{dop['accepted_per_s']:.1f} accepted steps/s ({dop['attempted_ms']:.4f} ms per "
             f"attempted step); vs eig {dop['vs_eig']:.2e} (bound {DOPRI_ATOL:g}); max|norm-1| "
             f"{dop['norm_dev']:.2e} (bound {DOPRI_NORM_ATOL:g}); launches {dop['launches']}")
         lab = labframe_and_cli(oracles["lab"], expm, tmp)
-        say(f"[16/19] C. lab frame (n_sea 6, scaled frequencies, 2e-3 s, 81 outputs): "
+        say(f"[16/20] C. lab frame (n_sea 6, scaled frequencies, 2e-3 s, 81 outputs): "
             f"simulate_lab_frame {lab['wall_s']:.2f} s wall; Iz_sea vs DOP853 oracle "
             f"{lab['vs_oracle']:.2e} (bound {LAB_ATOL:g}; oracle {lab['oracle_s']:.1f} s on the "
             f"host); max|norm-1| {lab['norm_dev']:.2e}; launches {lab['launches']}; simulate CLI "
             f"{' '.join(SIM_ARGV)}: {lab['cli_wall_s']:.2f} s, trace.npz equal to phase A's bit "
             f"for bit ('{lab['cli_line']}')")
         oz = ozaki_n12(n12.pop("rows"), peaks)
-        say(f"[17/19] D. Ozaki expm (n12, dim 8192, {N12_STEPS} steps, production dt, uncut): "
+        say(f"[17/20] D. Ozaki expm (n12, dim 8192, {N12_STEPS} steps, production dt, uncut): "
             f"simulate_rare(expm) {oz['wall_s']:.2f} s wall, stages {oz['stages_s']} (calls "
             f"{oz['stage_calls']}); n_sq {oz['n_sq']}; {oz['s_per_real_product']:.4f} s per real "
             f"(8192)^3 Ozaki product ({oz['limb_pairs']} int8 limb-pair GEMMs; int8 tensor-core "
@@ -1720,15 +1871,27 @@ def main() -> int:
             f"workload {oz['dense_wall_s']:.2f} s, vs ext {oz['dense_vs_ext']:.2e}, max|norm-1| "
             f"{oz['dense_norm_dev']:.3e}")
         lt = limb_tier(model, lam, f64["rows"])
-        say(f"[18/19] E. cheb_step limb tier (n13, dim 16384, {LIMB_STEPS} steps, production dt, "
+        say(f"[18/20] E. cheb_step limb tier (n13, dim 16384, {LIMB_STEPS} steps, production dt, "
             f"K {lt['K']}): {lt['wall_s']:.2f} s {lt['stages_s']}, {lt['steps_per_s']:.4f} "
             f"steps/s, {lt['applies_per_s']:.1f} applies/s, {lt['kernels_per_apply']} device "
             f"kernels per apply (torch.profiler); vs f64 {lt['vs_f64']:.2e} (bound "
             f"{LIMB_ATOL:g}); launches {lt['launches']}")
+        reset_launch_counts()
+        grid = grid2d(tmp, tr64)
+        grid["launches"] = dict(launch_counts)
+        split = "; ".join(f"{k} {r['wall_s']:.2f} s {_split(r)}" for k, r in grid["rows"].items())
+        say(f"[19/20] F. 2D grid (sweep2d CLI defaults: 3 rows x 39 sims, dim 128, 20000 steps, "
+            f"uncut): {grid['wall_s']:.2f} s wall; rows {split}; 3 row directories; 50 kHz row "
+            f"equal to phase 7's traces bit for bit; Iz_sea vs longdouble oracle "
+            f"{grid['vs_oracle']} (bound {ORACLE_ATOL:g}); max|norm-1| {grid['norm_dev']:.2e}; "
+            f"aggregate + stable region {grid['aggregate_s']:.3f} s ({grid['n_points']} points, "
+            f"best region {grid['best_region']}); reprocess (windows 0 and 35) + exponential "
+            f"{grid['reprocess_s']:.3f} s, window 0 equal to each summary.json, exponential "
+            f"statuses {grid['exponential_statuses']}; launches {grid['launches']}")
         expm.pop("named")
         expm.pop("t")
         say(json.dumps({"solvers": {"expm": expm, "dopri": dop, "labframe": lab,
-                                    "ozaki_n12": oz, "limb_n13": lt}}))
+                                    "ozaki_n12": oz, "limb_n13": lt, "grid2d": grid}}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for proc, _ in oracles.values():
@@ -1847,7 +2010,7 @@ def main() -> int:
             "n12_krylov": kry,
         },
     ]
-    say(f"[19/19] total {time.perf_counter() - t_start:.1f} s; kernels:")
+    say(f"[20/20] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,11 +14,14 @@ Hopper live in ``csrc/`` and are built with nvcc on first use
 (``kernels/_build.py``).  Entry points take ``device=`` and default to
 ``"cuda"``; pass ``device="cpu"`` to run on the host.
 
-Ported so far: the sea-detuning sweep with the dense eigendecomposition
-solvers ("auto" up to dim 2048, "eig", "eig32"), the dense exact-limb
-step-operator chain ("ext", "auto" for 2048 < dim <= 8192), and the
-beyond-dense Chebyshev stepper ("cheb_step", "auto" above dim 8192) with its
-"f64", "ext" and "extp" arithmetic tiers.  ROADMAP.md lists the rest.
+Ported: every ``simulate_rare`` solver, the lab-frame model, the
+sea-detuning sweep and the 2D amplitude x detuning grid
+(``sweep/grid2d.py``), the re-analysis of saved sweeps (``sweep/reprocess*.py``,
+``analysis/{exponential,aggregate,stable_region}.py``) and every CLI.  Not
+ported: the sharded and multi-process paths (``parallel/``, ``mesh=``;
+ROADMAP.md queue 1 item 5) and the native analysis helpers; the JAX
+package's ``ops/cplx.py`` has no counterpart by design (complex tensors take
+its place).
 """
 
 from __future__ import annotations

@@ -5,9 +5,12 @@ reference already does this in its reprocessor,
 reprocess_sweep_results.py:76-77).  Page set and PNG filenames match the
 reference sweep driver (sweep_sea_detuning.py:557-1150): a parameter page,
 four plots per detuning point, a summary metrics table, and the
-contrast-vs-eta scatter.
+contrast-vs-eta scatter; and the reprocessor's tail pages
+(reprocess_sweep_results.py:636-786): the full reprocessed metrics table,
+the addendum table and the |Δslope|-vs-eta scatter.
 
-Not yet ported: the reprocessor's pages (ROADMAP.md queue 1 item 4).
+Every function here draws; a module that must import without matplotlib
+imports this one only where it draws.
 """
 
 from __future__ import annotations
@@ -231,5 +234,94 @@ def contrast_vs_eta_page(pdf, base_dir: Optional[str], rows: list[dict]) -> None
         fig.savefig(
             os.path.join(base_dir, "contrast_rare_center_vs_DeltaOmega_over_geff.png"), dpi=300
         )
+    pdf.savefig(fig)
+    plt.close(fig)
+
+
+def reprocess_summary_table_page(pdf, rows: list[dict]) -> None:
+    """Full-metrics reprocess table, incl. the delta-slope columns
+    (reference reprocess_sweep_results.py:636-689)."""
+    fig, ax = plt.subplots(figsize=(8.27, 11.69))
+    ax.axis("off")
+    col_labels = [
+        "δ_A (Hz)",
+        "slope_off(center)",
+        "t_off(center)",
+        "slope_on(center)",
+        "t_on(center)",
+        "Δslope(center)",
+        "|Δslope(center)|",
+        "contrast_rare_center",
+        "slope_sea-center",
+        "t_sea-center",
+        "contrast_sea_center",
+    ]
+    table_vals = [
+        [
+            f"{r['delta_Hz']:+.1f}",
+            f"{r['I_z_slope_off_center']:+.3e}",
+            f"{r['t_off_center']:+.3f}",
+            f"{r['I_z_slope_on_center']:+.3e}",
+            f"{r['t_on_center']:+.3f}",
+            f"{r['delta_I_z_slope_center']:+.3e}",
+            f"{r['abs_delta_I_z_slope_center']:.3e}",
+            f"{r['contrast_rare_center']:+.3e}",
+            f"{r['I_z_slope_off_sea_center']:+.3e}",
+            f"{r['t_off_sea_center']:+.3f}",
+            f"{r['contrast_sea_center']:+.3e}",
+        ]
+        for r in rows
+    ]
+    table = ax.table(cellText=table_vals, colLabels=col_labels, loc="center")
+    table.auto_set_font_size(False)
+    table.set_fontsize(6)
+    table.scale(1.0, 1.3)
+    ax.set_title("Reprocessed metrics from coarse-grained ⟨I^z_sea⟩ slopes", pad=20)
+    pdf.savefig(fig)
+    plt.close(fig)
+
+
+def addendum_table_page(pdf, rows: list[dict]) -> None:
+    """Addendum table: delta, |Δslope_center|, contrast_rare_center
+    (reference reprocess_sweep_results.py:691-723)."""
+    fig, ax = plt.subplots(figsize=(8.27, 11.69))
+    ax.axis("off")
+    col_labels = ["δ_A (Hz)", "|Δslope_center|", "contrast_rare_center"]
+    table_vals = [
+        [
+            f"{r['delta_Hz']:+.1f}",
+            f"{r['abs_delta_I_z_slope_center']:.3e}",
+            f"{r['contrast_rare_center']:+.3e}",
+        ]
+        for r in rows
+    ]
+    table = ax.table(cellText=table_vals, colLabels=col_labels, loc="center")
+    table.auto_set_font_size(False)
+    table.set_fontsize(6)
+    table.scale(1.0, 1.3)
+    ax.set_title("Addendum: swept δ_A, |Δslope_center|, and contrast_rare_center", pad=20)
+    pdf.savefig(fig)
+    plt.close(fig)
+
+
+def abs_delta_slope_vs_eta_page(pdf, rows: list[dict]) -> None:
+    """|Δslope_center| vs eta scatter — the reprocessor's final page
+    (reference reprocess_sweep_results.py:760-786)."""
+    if not rows:
+        return
+    x = np.array([r.get("DeltaOmega_over_geff", np.nan) for r in rows], dtype=float)
+    z = np.array([r.get("abs_delta_I_z_slope_center", np.nan) for r in rows], dtype=float)
+    mask = ~np.isnan(x) & ~np.isnan(z)
+    x, z = x[mask], z[mask]
+    if x.size == 0:
+        return
+    order = np.argsort(x)
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.plot(x[order], z[order], "o-", markersize=4)
+    ax.set_xlabel(r"$\Delta\Omega / |g_{\mathrm{eff}}|$")
+    ax.set_ylabel(r"$| \Delta I^z_{\mathrm{slope,center}} |$")
+    ax.set_title(r"Absolute slope difference vs $\Delta\Omega/|g_{\mathrm{eff}}|$ (reprocessed)")
+    ax.grid(True, alpha=0.3)
+    fig.tight_layout()
     pdf.savefig(fig)
     plt.close(fig)

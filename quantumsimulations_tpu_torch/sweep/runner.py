@@ -26,6 +26,11 @@ Differences from the JAX package's runner:
     route.  ``mesh`` (the data-parallel sharded batch) raises
     NotImplementedError before anything is written (ROADMAP.md queue 1
     item 5).
+  * A sweep without ``base_dir`` is named to the second, as in the JAX
+    package, but never writes into the directory of a sweep started earlier
+    in the same second: it claims its directory atomically and, where the
+    name is taken, waits for the next second (the JAX package's rows of a
+    2D grid merge into one directory when a row takes under a second).
   * matplotlib is imported only when ``make_plots`` is on, so a sweep
     without plots runs where matplotlib is not installed.  (With plots off
     the reference opens an empty PdfPages, which writes no file, so the
@@ -251,10 +256,18 @@ def run_sweep_sea_detuning(
 
     # -------- output directory --------
     if base_dir is None:
-        # named to the second, as the JAX package names it: two sweeps
-        # started in the same second share the directory there too
-        timestamp = _dt.datetime.now().strftime("%Y%m%d_%H%M%S")
-        base_dir = os.path.join(out_root, f"sea_detuning_sweep_{timestamp}")
+        # named to the second, as the JAX package names it; where the name
+        # is taken (a sweep started earlier in the same second, such as the
+        # previous row of a 2D grid) this sweep waits for the next second
+        # instead of writing into that sweep's directory
+        while True:
+            timestamp = _dt.datetime.now().strftime("%Y%m%d_%H%M%S")
+            base_dir = os.path.join(out_root, f"sea_detuning_sweep_{timestamp}")
+            try:
+                os.makedirs(base_dir)
+                break
+            except FileExistsError:
+                time.sleep(0.05)
     os.makedirs(base_dir, exist_ok=True)
     pdf_path = os.path.join(base_dir, "sea_detuning_report.pdf")
 

@@ -30,7 +30,9 @@ the lab frame on the card against the CPU at atol 1e-12, rtol 1e-11, 1e-9
 (the step sequences may differ by a step where an error norm sits within
 rounding of a decision);
 the limb tier against the f64 tier on the card, 1e-11, and against the CPU,
-1e-12.
+1e-12; the 2D grid (``run_grid2d``) on the card against the CPU, 1e-10 on
+every saved trace (the eig route's bar above) and 1e-8 relative on the
+metrics.
 """
 
 import numpy as np
@@ -529,3 +531,58 @@ def test_limb_tier_on_card_within_bound_of_f64(cuda_device):
     cpu = tcs.chebyshev_step_traces(*args, arithmetic="limb", device="cpu")
     assert np.abs(limb[:7] - f64[:7]).max() <= 1e-11
     assert np.abs(limb[:7] - cpu[:7]).max() <= 1e-12
+
+
+def test_grid2d_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
+    """2 rows x 2 detunings through ``run_grid2d`` on the card and on the
+    CPU: every saved trace within 1e-10, every metric within 1e-8 relative.
+    The runner's clock advances one second per reading, so that the rows
+    never share a directory (they are named to the second)."""
+    import contextlib
+    import datetime as real_dt
+    import io
+    import itertools
+    import json
+    import os
+    import types
+
+    from quantumsimulations_tpu_torch.sweep import runner
+    from quantumsimulations_tpu_torch.sweep.grid2d import run_grid2d
+
+    ticks = itertools.count()
+
+    class _Clock(real_dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return real_dt.datetime(2026, 1, 2, 3, 4, 5) + real_dt.timedelta(seconds=next(ticks))
+
+    monkeypatch.setattr(runner, "_dt", types.SimpleNamespace(datetime=_Clock))
+    gamma_sea, gamma_rare = 8.1812e7, 6.976e7
+    grid = dict(f_Az=gamma_sea * 3.0 / (2 * np.pi), f1A_values_Hz=[30e3, 50e3],
+                gamma_sea=gamma_sea, gamma_rare=gamma_rare, n_detunings=2, n_sea=3,
+                t_final=2.0, steps=200, coarse_window=10, make_plots=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = run_grid2d(**grid, out_root=str(tmp_path / "cuda"), device=cuda_device)
+        cpu = run_grid2d(**grid, out_root=str(tmp_path / "cpu"), device="cpu")
+    assert len(set(card)) == len(card) == 2
+    for dc, dh in zip(card, cpu):
+        with open(os.path.join(dc, "summary.json")) as f:
+            sc = json.load(f)
+        with open(os.path.join(dh, "summary.json")) as f:
+            sh = json.load(f)
+        assert sc["global_params"] == sh["global_params"]
+        for rc, rh in zip(sc["sweep_results"], sh["sweep_results"], strict=True):
+            assert list(rc) == list(rh)
+            for key in rh:
+                assert np.isclose(rc[key], rh[key], rtol=1e-8, atol=0.0, equal_nan=True), key
+        labels = sorted(d for d in os.listdir(dh) if d.startswith("delta_"))
+        assert labels == sorted(d for d in os.listdir(dc) if d.startswith("delta_"))
+        assert len(labels) == 2
+        for label in labels:
+            for tag in ("center_off", "center_on", "shell_off"):
+                name = f"time_and_obs_{tag}.npz"
+                with np.load(os.path.join(dc, label, name)) as zc, \
+                        np.load(os.path.join(dh, label, name)) as zh:
+                    assert set(zc.files) == set(zh.files)
+                    for key in zh.files:
+                        assert np.abs(zc[key] - zh[key]).max() <= 1e-10, (label, tag, key)

@@ -177,6 +177,38 @@ def test_each_sweep_gets_its_own_directory(tmp_path, monkeypatch):
         assert os.path.isfile(os.path.join(d, "summary.json"))
 
 
+def test_a_sweep_never_writes_into_an_earlier_sweeps_directory(tmp_path, monkeypatch):
+    """Two sweeps into one root while the clock reads the same second: the
+    second waits for the next second and gets its own directory (the JAX
+    package would write both into one)."""
+    import datetime as real_dt
+    import types
+
+    import quantumsimulations_tpu_torch.sweep.runner as trunner
+
+    readings = []
+
+    class _Clock(real_dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            readings.append(None)  # the same second for the first three readings
+            return real_dt.datetime(2026, 3, 4, 5, 6, 7 + (len(readings) > 3))
+
+    sleeps = []
+    monkeypatch.setattr(trunner, "_dt", types.SimpleNamespace(datetime=_Clock))
+    monkeypatch.setattr(trunner.time, "sleep", sleeps.append)
+    cfg = dict(SWEEP, steps=40)
+    a = tsweep(**dict(cfg, sea_detunings_Hz=[10_000.0]), out_root=str(tmp_path), device="cpu")
+    b = tsweep(**dict(cfg, sea_detunings_Hz=[20_000.0]), out_root=str(tmp_path), device="cpu")
+    assert os.path.basename(a) == "sea_detuning_sweep_20260304_050607"
+    assert os.path.basename(b) == "sea_detuning_sweep_20260304_050608"
+    assert len(sleeps) == 2 and len(readings) == 4
+    for d, label in ((a, "delta_p10000.0Hz"), (b, "delta_p20000.0Hz")):
+        assert sorted(x for x in os.listdir(d) if x.startswith("delta_")) == [label]
+        rows = _load(os.path.join(d, "summary.json"))["sweep_results"]
+        assert [r["delta_Hz"] for r in rows] == [float(label[7:-2])]
+
+
 def test_unported_solver_writes_nothing(tmp_path):
     """Every solver is ported now; what is not (the sharded sweep, mesh=)
     and an unknown solver raise before anything is written."""
