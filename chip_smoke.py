@@ -104,8 +104,23 @@ Phases, each printing one line as it finishes:
      finite rows), the stable-region statistics (written to the root), and
      per row ``reprocess_sweep`` at the original window (equal to its
      summary.json) and at window 35, and ``reprocess_exponential``;
- 20. a JSON line with the solver phases' numbers, and one with every
-     kernel's launches and timings.
+ 20. a JSON line with the solver phases' numbers;
+  G. the parallel slice at world size 1: one NCCL process group on the card
+     through the port's ``initialize_multihost`` (a single-rank rendezvous
+     on 127.0.0.1) and a ('dp', 'sp') = (1, 1) mesh, then
+     G1. the production sweep of phases 7 and 8, uncut, through
+         ``run_sweep_sea_detuning(mesh=...)`` with "eig" and "eig32" (kernel
+         1 launched and counted), and phase F's grid through ``sweep2d
+         --mesh-devices 1``, every trace against phases 7, 8 and F;
+     G2. the sharded apply against the matrix-free apply at n12, and the
+         sharded Krylov trace over G2_STEPS output steps against phase 12;
+     G3. the DR-sharded ext Chebyshev stepper at n13 over G3_STEPS output
+         steps against phase 9's f64 rows;
+     G4. the row-sharded Ozaki and ext expm chains at n12 over G4_STEPS
+         output steps against phase 11's ext rows;
+     G5. the native helpers (g++) on phase 7's traces against numpy;
+     and a JSON line with phase G's numbers; then one with every kernel's
+     launches and timings.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero without it.  A watchdog ends the run with exit code 1 after
@@ -218,6 +233,25 @@ OZAKI_ATOL = 1e-5
 #: JAX package), over LIMB_STEPS output steps
 LIMB_ATOL = 1e-11
 LIMB_STEPS = 2
+
+#: phase G (the parallel slice at world size 1 over NCCL): G1's sharded rows
+#: against the unsharded ones when not bit-equal (tests/test_sharding.py:167,
+#: :237); G2's sharded apply against the matrix-free apply (relative), and
+#: its Krylov rows against phase 12's over G2_STEPS output steps (the norm at
+#: KRYLOV_NORM_ATOL); G3's sharded ext stepper against phase 9's f64 rows over
+#: G3_STEPS output steps (tests/test_limb_kernels.py:161's tier bar); G4's
+#: sharded ext chain against the single-card ext chain's states
+#: (tests/test_expm_sharded.py:113; phase 11's own rows carry its
+#: observables' limb-pair truncation, ~1e-11 at dim 8192, and are held at
+#: N12_ATOL) and the sharded Ozaki chain against them at phase D's
+#: OZAKI_ATOL, over G4_STEPS output steps; G5's native helpers against the numpy metrics
+#: (tests/test_native.py's bars; the fit's fields that are differences of
+#: trace values relative to the scale of their operands, g5_native)
+G1_EIG_ATOL, G1_EIG32_ATOL = 1e-12, 1e-6
+G2_APPLY_RTOL, G2_ATOL, G2_STEPS = 1e-12, 1e-10, 2
+G3_ATOL, G3_STEPS = 1e-11, 2
+G4_EXT_ATOL, G4_EXT_NORM_ATOL, G4_STEPS = 1e-12, 1e-12, 4
+G5_COARSE_RTOL, G5_SLOPE_RTOL = 1e-13, 1e-12
 
 #: (float32 FLOP/s without tensor cores, dense int8 tensor-core OP/s, HBM
 #: bytes/s, dense TF32 tensor-core FLOP/s, float64 FLOP/s without tensor
@@ -847,7 +881,8 @@ def n12_krylov(n12: dict) -> dict:
     return {"wall_s": wall, "launches": launches, "norm_bound": nb, "n_sub": n_sub,
             "substeps": substeps, "s_per_substep": wall / substeps,
             "applies_per_s": substeps * KRYLOV_M / wall, "norm_dev": norm_dev,
-            "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb, "vs_oracle": vs_oracle}
+            "iz0": float(rows[2, 0]), "vs_cheb_step": vs_cheb, "vs_oracle": vs_oracle,
+            "rows": rows}
 
 
 def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
@@ -1575,7 +1610,369 @@ def grid2d(tmp: str, phase7: dict) -> dict:
     return {"wall_s": wall, "rows": per_row, "norm_dev": norm_dev, "vs_oracle": oracle_err,
             "n_points": len(pts["eta"]), "best_region": stats["best_region"],
             "aggregate_s": t_aggregate, "reprocess_s": t_reprocess,
-            "exponential_statuses": statuses}
+            "exponential_statuses": statuses,
+            "dirs": {f"{f1A / 1e3:g}kHz": d for f1A, (d, _) in rows.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Phase G: the parallel slice (parallel/, the sharded engines, native/) at
+# world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _traces_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over every trace of two load_traces trees (0.0 when
+    they are equal bit for bit)."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        raise AssertionError("the two sweeps wrote different trees")
+    return max(float(np.abs(a[key][k] - b[key][k]).max()) for key in a for k in a[key])
+
+
+def g1_sharded_sweeps(tmp: str, mesh, tr64: dict, tr32: dict, grid_dirs: dict) -> dict:
+    """G1: the production sweep at the CLI defaults, uncut, through
+    ``run_sweep_sea_detuning(mesh=...)`` with "eig" and with "eig32" (the CLI's
+    own arguments, the runner called with the mesh), and the 2D grid through
+    ``cli/sweep2d.py --mesh-devices 1`` at its defaults; every saved trace
+    against phases 7, 8 and F (bit for bit, else within G1_EIG_ATOL /
+    G1_EIG32_ATOL with the largest difference printed)."""
+    import torch
+
+    import quantumsimulations_tpu_torch.cli.sweep as cli_sweep
+    from quantumsimulations_tpu_torch.cli.sweep2d import main as sweep2d_main
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    real = cli_sweep.run_sweep_sea_detuning
+    cli_sweep.run_sweep_sea_detuning = lambda **kw: real(**kw, mesh=mesh)
+    try:
+        for solver, ref, atol in (("eig", tr64, G1_EIG_ATOL), ("eig32", tr32, G1_EIG32_ATOL)):
+            d = os.path.join(tmp, f"g1_{solver}")
+            reset_launch_counts()
+            run = production_sweep(solver, d)
+            run["launches"] = dict(launch_counts)
+            diff = _traces_diff(load_traces(d), ref)
+            if not diff <= atol:
+                raise AssertionError(f"G1 sharded {solver} vs unsharded: {diff:.3e} > {atol:g}")
+            run["vs_unsharded"] = diff
+            out[solver] = run
+    finally:
+        cli_sweep.run_sweep_sea_detuning = real
+    if out["eig32"]["launches"]["cmatmul_f32"] <= 0:
+        raise AssertionError("G1: the sharded eig32 sweep did not launch cmatmul_f32")
+
+    root = os.path.join(tmp, "g1_grid2d")
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "g1_grid2d.log"), "w", encoding="utf-8") as f, \
+            contextlib.redirect_stdout(f):
+        sweep2d_main(["--mesh-devices", "1", "--no-plots", "--skip-report", "--out-root", root,
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    grid = {"wall_s": time.perf_counter() - t0, "vs_unsharded": {}}
+    names = sorted(os.listdir(root))
+    if len(names) != 3:
+        raise AssertionError(f"G1 grid2d root holds {names}, want three sweep directories")
+    for n in names:
+        d = os.path.join(root, n)
+        with open(os.path.join(d, "summary.json"), encoding="utf-8") as f:
+            key = f"{json.load(f)['global_params']['f1A_Hz'] / 1e3:g}kHz"
+        diff = _traces_diff(load_traces(d), load_traces(grid_dirs[key]))
+        if not diff <= G1_EIG_ATOL:
+            raise AssertionError(f"G1 sharded grid row {key} vs phase F: {diff:.3e}")
+        grid["vs_unsharded"][key] = diff
+    out["grid2d"] = grid
+    return out
+
+
+def g2_state_sharded(mesh, kry_rows) -> dict:
+    """G2: the sharded statevector at n12 (dim 8192): ``make_sharded_apply``
+    against the matrix-free apply on a seeded state, then
+    ``krylov_traces_assembled_sharded`` over G2_STEPS output steps against
+    phase 12's rows."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.krylov import default_matrix_free_apply
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.parallel.mesh import mesh_device
+    from quantumsimulations_tpu_torch.parallel.state_sharded import (
+        krylov_traces_assembled_sharded,
+        make_sharded_apply,
+    )
+
+    dev = mesh_device(mesh)
+    model = build_model(n12_params(G2_STEPS))
+    H = model.hamiltonian
+    rng = np.random.default_rng(12)
+    psi = rng.standard_normal(H.dim) + 1j * rng.standard_normal(H.dim)
+    psi = torch.as_tensor(psi / np.linalg.norm(psi), device=dev)
+    apply_fn, _, rows, _ = make_sharded_apply(H, mesh)
+    got = apply_fn(psi[rows])
+    want = default_matrix_free_apply(H, device=dev)(psi)
+    apply_rel = float((got - want).abs().max() / want.abs().max())
+    if not apply_rel <= G2_APPLY_RTOL:
+        raise AssertionError(f"G2 sharded apply vs matrix-free: {apply_rel:.3e} > {G2_APPLY_RTOL:g}")
+    t = N12_DT * np.arange(G2_STEPS)
+    t0 = time.perf_counter()
+    out = krylov_traces_assembled_sharded(H, model.psi0, t, model.dims, model.n_sea_effective,
+                                          model.idx_rare, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vs = float(np.abs(out[:7] - kry_rows[:, :G2_STEPS]).max())
+    norm_dev = float(np.abs(out[6] - 1.0).max())
+    if not (vs <= G2_ATOL and norm_dev <= KRYLOV_NORM_ATOL):
+        raise AssertionError(f"G2 sharded krylov vs phase 12: {vs:.3e} (bound {G2_ATOL:g}), "
+                             f"max|norm-1| {norm_dev:.3e} (bound {KRYLOV_NORM_ATOL:g})")
+    return {"apply_rel_err": apply_rel, "krylov_wall_s": wall, "vs_phase12": vs,
+            "norm_dev": norm_dev}
+
+
+def g3_cheb_sharded(mesh, model, lam: float, f64_rows) -> dict:
+    """G3: ``chebyshev_step_traces_sharded`` (the ext limb domain with one
+    int32 all_reduce per apply) at n13 (dim 16384, the production dt) over
+    G3_STEPS output steps, against phase 9's f64 rows."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.parallel.cheb_sharded import chebyshev_step_traces_sharded
+
+    t0 = time.perf_counter()
+    rows = chebyshev_step_traces_sharded(
+        model.hamiltonian, model.psi0, N13_DT * np.arange(G3_STEPS), model.dims,
+        model.n_sea_effective, model.idx_rare, mesh=mesh, norm_bound=lam)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vs = float(np.abs(rows[:7] - f64_rows[:7, :G3_STEPS]).max())
+    if not vs <= G3_ATOL:
+        raise AssertionError(f"G3 sharded cheb (ext) vs phase 9 f64: {vs:.3e} > {G3_ATOL:g}")
+    return {"wall_s": wall, "vs_phase9_f64": vs,
+            "energy_diff": float(abs(rows[7, 0] - f64_rows[7, 0])),
+            "norm_dev": float(np.abs(rows[6] - 1.0).max())}
+
+
+def ext_seed_rows(model, T: int, dev) -> tuple[np.ndarray, float]:
+    """The single-card ext chain's first T states (its seed block: the
+    Horner core, the squarings and the doubling pass of
+    ``expm_traces_assembled_ext`` at block T), with the observables taken
+    from their float64 values, as the sharded ext engine takes them (the
+    route's own observables sum truncated limb pairs, ~1e-11 at dim 8192);
+    returns the (7, T) rows and the seconds."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.dynamics.expm_propagator import (
+        _ext_host_setup,
+        _ext_preamble,
+        _ext_split_operator,
+    )
+    from quantumsimulations_tpu_torch.dynamics.observables import assembled_rows
+    from quantumsimulations_tpu_torch.ops.extprec import ext_val
+
+    t0 = time.perf_counter()
+    H, dim = model.hamiltonian, model.hamiltonian.dim
+    _, n_sq, dt_s, op = _ext_host_setup(H, np.asarray(model.psi0), N12_DT, dim, dev)
+    Are, Aim = _ext_split_operator(op, dt_s, dim, dev)
+    S_re, S_im, _, _ = _ext_preamble(Are, Aim, np.asarray(model.psi0), n_sq,
+                                     T.bit_length() - 1, 512, lambda name: contextlib.nullcontext())
+    sea_mask = torch.as_tensor((np.arange(len(model.dims)) < model.n_sea_effective)
+                               .astype(np.float64), device=dev)
+    rows = assembled_rows(torch.complex(ext_val(S_re), ext_val(S_im)), model.dims, sea_mask,
+                          model.idx_rare).cpu().numpy()
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def g4_expm_sharded(mesh, ext_rows, ozaki_norm_dev: float) -> dict:
+    """G4: ``expm_traces_sharded`` (Ozaki) and ``expm_traces_sharded_ext`` at
+    n12 over G4_STEPS output steps of the production spacing: ext against
+    the single-card ext chain's states (``ext_seed_rows``) at
+    G4_EXT_ATOL, and against phase 11's ext rows at phase 11's own bar
+    (N12_ATOL: the route's observables truncate limb pairs); Ozaki against
+    phase 11's rows at phase D's bar; the norm of ext within
+    G4_EXT_NORM_ATOL, of Ozaki within phase D's own recorded drift over the
+    whole horizon (its squaring chain rounds each product at ~5e-16)."""
+    import numpy as np
+    import torch
+
+    from quantumsimulations_tpu_torch.models.dipolar import build_model
+    from quantumsimulations_tpu_torch.parallel.expm_sharded import (
+        expm_traces_sharded,
+        expm_traces_sharded_ext,
+    )
+    from quantumsimulations_tpu_torch.parallel.mesh import mesh_device
+
+    model = build_model(n12_params(G4_STEPS))
+    args = (model.hamiltonian, model.psi0, N12_DT * np.arange(G4_STEPS), model.dims,
+            model.n_sea_effective, model.idx_rare)
+    seed_rows, seed_s = ext_seed_rows(model, G4_STEPS, mesh_device(mesh))
+    out = {"single_card_ext_s": seed_s}
+    for name, fn in (("ext", expm_traces_sharded_ext), ("ozaki", expm_traces_sharded)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = fn(*args, mesh=mesh)
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "norm_dev": float(np.abs(rows[6] - 1.0).max())}
+        out[name]["rows"] = rows
+    ext, oz = out["ext"], out["ozaki"]
+    rows = ext.pop("rows")
+    ext["vs_single_card"] = float(np.abs(rows[:7] - seed_rows).max())
+    ext["vs_phase11"] = float(np.abs(rows[:7] - ext_rows[:7, :G4_STEPS]).max())
+    oz["vs_phase11_ext"] = float(np.abs(oz.pop("rows")[:6] - ext_rows[:6, :G4_STEPS]).max())
+    oz["norm_bar"] = max(G4_EXT_NORM_ATOL, ozaki_norm_dev)
+    if not (ext["vs_single_card"] <= G4_EXT_ATOL and ext["vs_phase11"] <= N12_ATOL
+            and ext["norm_dev"] <= G4_EXT_NORM_ATOL):
+        raise AssertionError(f"G4 sharded ext: vs the single-card chain "
+                             f"{ext['vs_single_card']:.3e} (bound {G4_EXT_ATOL:g}), vs phase 11 "
+                             f"{ext['vs_phase11']:.3e} (bound {N12_ATOL:g}), max|norm-1| "
+                             f"{ext['norm_dev']:.3e}")
+    if not (oz["vs_phase11_ext"] <= OZAKI_ATOL and oz["norm_dev"] <= oz["norm_bar"]):
+        raise AssertionError(f"G4 sharded Ozaki: vs ext {oz['vs_phase11_ext']:.3e} (bound "
+                             f"{OZAKI_ATOL:g}), max|norm-1| {oz['norm_dev']:.3e} (bound "
+                             f"{oz['norm_bar']:.3e})")
+    return out
+
+
+def g5_native(tr64: dict) -> dict:
+    """G5: the port's native helpers built with g++ on this machine (no
+    numpy fallback may hide here), on phase 7's Iz_sea traces, against the
+    numpy metrics."""
+    import numpy as np
+
+    from quantumsimulations_tpu_torch import native
+    from quantumsimulations_tpu_torch.analysis.metrics import coarse_grain, iz_slope_from_coarse
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("G5: the native library did not build (g++) or load")
+    build_s = time.perf_counter() - t0
+    keys = sorted(tr64)
+    t = tr64[keys[0]]["t"]
+    Y = np.stack([tr64[k]["Iz_sea"] for k in keys])
+    t0 = time.perf_counter()
+    coarse = native.coarse_grain_batch(Y, 100)
+    tc = coarse_grain(t, Y[0], 100)[0]
+    fits = native.iz_slope_batch(tc, coarse)
+    native_s = time.perf_counter() - t0
+    worst_coarse = worst_slope = worst_scaled = 0.0
+    fields: dict = {}  # per field: the largest difference of its own value and of its scale
+    for i in range(len(keys)):
+        want = coarse_grain(t, Y[i], 100)[1]
+        if not np.allclose(coarse[i], want, rtol=G5_COARSE_RTOL, atol=1e-15):
+            raise AssertionError(f"G5 coarse_grain_batch differs from numpy on {keys[i]}")
+        worst_coarse = max(worst_coarse, float(np.abs(coarse[i] - want).max()))
+        py = iz_slope_from_coarse(tc, coarse[i])
+        # the fit's fields that are differences of trace values (Iz_sea
+        # ~ -2.4 here, the drift ~1e-4) are held relative to the scale of
+        # their operands: the two fits round those operands differently,
+        # and a near-flat trace cancels all but a few digits
+        ymax = float(np.abs(coarse[i]).max())
+        span = py["t_end"] - py["t_start"]
+        scale = {"I_z_slope": ymax, "I_z_start": ymax, "I_z_end": ymax,
+                 "slope": ymax / span, "slope_std": ymax / span,
+                 "t_value": ymax / span / abs(py["slope_std"])}
+        for k, v in py.items():
+            got = fits[i][k]
+            if np.isnan(v) and np.isnan(got):
+                continue
+            err = abs(got - v)
+            if not err <= G5_SLOPE_RTOL * max(abs(v), scale.get(k, 0.0)):
+                raise AssertionError(f"G5 iz_slope_batch {k} differs from numpy on {keys[i]}: "
+                                     f"{got!r} vs {v!r}")
+            own = err / abs(v) if v != 0 else 0.0
+            scaled = err / max(abs(v), scale.get(k, 0.0))
+            worst_slope = max(worst_slope, own)
+            worst_scaled = max(worst_scaled, scaled)
+            f = fields.setdefault(k, {"own": 0.0, "scaled": 0.0})
+            f["own"], f["scaled"] = max(f["own"], own), max(f["scaled"], scaled)
+    return {"build_s": build_s, "native_s": native_s, "traces": len(keys),
+            "coarse_max_abs_diff": worst_coarse, "slope_max_rel_diff": worst_slope,
+            "slope_max_scaled_diff": worst_scaled, "slope_fields": fields}
+
+
+def phase_g(tmp: str, smi: str, tr64: dict, tr32: dict, grid_dirs: dict, kry_rows, model13,
+            lam: float, f64_rows, ext_rows, ozaki_norm_dev: float) -> dict:
+    """Phase G at world size 1: one NCCL process group on this card through
+    the port's ``initialize_multihost`` (a single-rank rendezvous on
+    127.0.0.1), a ('dp', 'sp') = (1, 1) mesh, G1-G5, the group destroyed at
+    the end whatever happens."""
+    import torch
+    import torch.distributed as dist
+
+    from quantumsimulations_tpu_torch.parallel.distributed import initialize_multihost
+    from quantumsimulations_tpu_torch.parallel.mesh import make_mesh
+
+    if not initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("G: initialize_multihost did not start a process group")
+    out = {"backend": str(dist.get_backend()),
+           "nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+    say(f"[G] process group: backend {out['backend']}, NCCL {out['nccl_version']}, world size "
+        f"{dist.get_world_size()} on {smi}")
+    try:
+        mesh = make_mesh(1, sp=1, device="cuda")
+        t0 = time.perf_counter()
+        g1 = out["G1"] = g1_sharded_sweeps(tmp, mesh, tr64, tr32, grid_dirs)
+        out["G1"]["wall_s"] = time.perf_counter() - t0
+        say(f"[G1/5] dp-sharded production sweep, (1, 1) mesh, uncut (39 sims, dim 128, 20000 "
+            f"steps): eig {g1['eig']['wall_s']:.2f} s {_split(g1['eig'])}, max|sharded - phase 7| "
+            f"{g1['eig']['vs_unsharded']:.1e} (bar: bit for bit, else {G1_EIG_ATOL:g}); eig32 "
+            f"{g1['eig32']['wall_s']:.2f} s {_split(g1['eig32'])}, max|sharded - phase 8| "
+            f"{g1['eig32']['vs_unsharded']:.1e} (else {G1_EIG32_ATOL:g}), cmatmul_f32 launches "
+            f"{g1['eig32']['launches']['cmatmul_f32']}; sweep2d --mesh-devices 1 (3 rows) "
+            f"{g1['grid2d']['wall_s']:.2f} s, max|row - phase F| {g1['grid2d']['vs_unsharded']}; "
+            f"phase G1 {g1['wall_s']:.2f} s; {smi}")
+        t0 = time.perf_counter()
+        g2 = out["G2"] = g2_state_sharded(mesh, kry_rows)
+        g2["wall_s"] = time.perf_counter() - t0
+        say(f"[G2/5] sharded statevector n12 (dim 8192): apply vs matrix-free rel err "
+            f"{g2['apply_rel_err']:.2e} (bar {G2_APPLY_RTOL:g}); krylov_traces_assembled_sharded "
+            f"over {G2_STEPS} output steps {g2['krylov_wall_s']:.2f} s, vs phase 12 "
+            f"{g2['vs_phase12']:.2e} (bar {G2_ATOL:g}), max|norm-1| {g2['norm_dev']:.2e} (bar "
+            f"{KRYLOV_NORM_ATOL:g}); phase G2 {g2['wall_s']:.2f} s; {smi}")
+        t0 = time.perf_counter()
+        g3 = out["G3"] = g3_cheb_sharded(mesh, model13, lam, f64_rows)
+        g3["phase_s"] = time.perf_counter() - t0
+        say(f"[G3/5] chebyshev_step_traces_sharded n13 (dim 16384, production dt, {G3_STEPS} "
+            f"output steps, ext limbs, one int32 all_reduce per apply): {g3['wall_s']:.2f} s; vs "
+            f"phase 9 f64 {g3['vs_phase9_f64']:.2e} (bar {G3_ATOL:g}), energy diff "
+            f"{g3['energy_diff']:.1e} rad/s, max|norm-1| {g3['norm_dev']:.2e}; phase G3 "
+            f"{g3['phase_s']:.2f} s; {smi}")
+        t0 = time.perf_counter()
+        g4 = out["G4"] = g4_expm_sharded(mesh, ext_rows, ozaki_norm_dev)
+        g4["wall_s"] = time.perf_counter() - t0
+        say(f"[G4/5] row-sharded expm n12 (dim 8192, {G4_STEPS} output steps, production dt): "
+            f"ext {g4['ext']['wall_s']:.2f} s, vs the single-card ext chain's states "
+            f"{g4['ext']['vs_single_card']:.2e} (bar {G4_EXT_ATOL:g}; that chain "
+            f"{g4['single_card_ext_s']:.2f} s), vs phase 11's rows {g4['ext']['vs_phase11']:.2e} "
+            f"(bar {N12_ATOL:g}), max|norm-1| {g4['ext']['norm_dev']:.2e} (bar "
+            f"{G4_EXT_NORM_ATOL:g}); Ozaki {g4['ozaki']['wall_s']:.2f} s, vs phase 11 ext "
+            f"{g4['ozaki']['vs_phase11_ext']:.2e} (bar {OZAKI_ATOL:g}), max|norm-1| "
+            f"{g4['ozaki']['norm_dev']:.2e} (bar: phase D's recorded drift "
+            f"{g4['ozaki']['norm_bar']:.2e}); phase G4 {g4['wall_s']:.2f} s; {smi}")
+        t0 = time.perf_counter()
+        g5 = out["G5"] = g5_native(tr64)
+        g5["wall_s"] = time.perf_counter() - t0
+        say(f"[G5/5] native helpers (g++ build {g5['build_s']:.2f} s): coarse_grain_batch + "
+            f"iz_slope_batch on phase 7's {g5['traces']} Iz_sea traces {g5['native_s']:.4f} s; vs "
+            f"numpy: coarse max abs diff {g5['coarse_max_abs_diff']:.1e} (bar rtol "
+            f"{G5_COARSE_RTOL:g}), slope fields max diff {g5['slope_max_scaled_diff']:.1e} of "
+            f"their operands' scale (bar {G5_SLOPE_RTOL:g}; of their own value "
+            f"{g5['slope_max_rel_diff']:.1e}; per field, own / scaled: "
+            + ", ".join(f"{k} {f['own']:.1e} / {f['scaled']:.1e}"
+                        for k, f in sorted(g5["slope_fields"].items()))
+            + f"); phase G5 {g5['wall_s']:.2f} s; {smi}")
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 def main() -> int:
@@ -1809,6 +2206,7 @@ def main() -> int:
             f"{n12['oracle_s']:.1f} s on the host)")
 
         kry = n12_krylov(n12)
+        kry_rows = kry.pop("rows")  # for phase G2
         say(f"[12/20] n12 krylov (dim 8192, {N12_CHECK_STEPS} output steps, production dt): "
             f"simulate_rare {kry['wall_s']:.2f} s wall, n_sub {kry['n_sub']} per output step "
             f"(norm bound {kry['norm_bound']:.6e} rad/s), {kry['substeps']} substeps, "
@@ -1860,6 +2258,7 @@ def main() -> int:
             f"host); max|norm-1| {lab['norm_dev']:.2e}; launches {lab['launches']}; simulate CLI "
             f"{' '.join(SIM_ARGV)}: {lab['cli_wall_s']:.2f} s, trace.npz equal to phase A's bit "
             f"for bit ('{lab['cli_line']}')")
+        ext_rows_n12 = n12["rows"][:, :G4_STEPS].copy()  # for phase G4
         oz = ozaki_n12(n12.pop("rows"), peaks)
         say(f"[17/20] D. Ozaki expm (n12, dim 8192, {N12_STEPS} steps, production dt, uncut): "
             f"simulate_rare(expm) {oz['wall_s']:.2f} s wall, stages {oz['stages_s']} (calls "
@@ -1892,6 +2291,12 @@ def main() -> int:
         expm.pop("t")
         say(json.dumps({"solvers": {"expm": expm, "dopri": dop, "labframe": lab,
                                     "ozaki_n12": oz, "limb_n13": lt, "grid2d": grid}}))
+
+        # ---- phase G: the parallel slice at world size 1 over NCCL ----
+        g = phase_g(tmp, smi, tr64, tr32, grid.pop("dirs"), kry_rows, model, lam, f64["rows"],
+                    ext_rows_n12, oz["norm_dev"])
+        launches_g1 = g["G1"]["eig32"]["launches"]["cmatmul_f32"]
+        say(json.dumps({"parallel": g}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for proc, _ in oracles.values():
@@ -1909,7 +2314,9 @@ def main() -> int:
             "route": "cuda",
             "source": "quantumsimulations_tpu_torch/csrc/cmatmul_f32.cu",
             "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:30",
-            "launches": launches_eig32["cmatmul_f32"],
+            "launches": launches_eig32["cmatmul_f32"] + launches_g1,
+            "launches_by_path": {"eig32 sweep (phase 8)": launches_eig32["cmatmul_f32"],
+                                 "dp-sharded eig32 sweep (phase G1)": launches_g1},
             "max_abs_err": at_main["max_abs_err"],
             "ms": at_main["ms"],
             "kernel_ms": at_main["ms"],

@@ -17,11 +17,12 @@ Hopper live in ``csrc/`` and are built with nvcc on first use
 Ported: every ``simulate_rare`` solver, the lab-frame model, the
 sea-detuning sweep and the 2D amplitude x detuning grid
 (``sweep/grid2d.py``), the re-analysis of saved sweeps (``sweep/reprocess*.py``,
-``analysis/{exponential,aggregate,stable_region}.py``) and every CLI.  Not
-ported: the sharded and multi-process paths (``parallel/``, ``mesh=``;
-ROADMAP.md queue 1 item 5) and the native analysis helpers; the JAX
-package's ``ops/cplx.py`` has no counterpart by design (complex tensors take
-its place).
+``analysis/{exponential,aggregate,stable_region}.py``), every CLI, the
+sharded and multi-process paths on ``torch.distributed`` (``parallel/``:
+``mesh=`` and ``--mesh-devices``, one process per device, NCCL on ``cuda``
+and gloo on ``cpu``) and the native analysis helpers (``native/``).  The
+JAX package's ``ops/cplx.py`` has no counterpart by design (complex tensors
+take its place).
 """
 
 from __future__ import annotations

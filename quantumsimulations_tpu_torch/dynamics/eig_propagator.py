@@ -137,6 +137,13 @@ def eig_traces_assembled_batched(
     Row order is TRACE_ROWS.  ``pack`` is accepted and ignored (module
     docstring).
     """
+    return _eig_rows(w, V, psi0, times, dims, n_sea_effective, idx_rare, t_chunk,
+                     device).cpu().numpy()
+
+
+def _eig_rows(w, V, psi0, times, dims, n_sea_effective, idx_rare, t_chunk, device) -> torch.Tensor:
+    """:func:`eig_traces_assembled_batched`'s rows as a (B, 8, T) float64
+    tensor on the device (the sharded sweep gathers them there)."""
     s = _setup(w, V, psi0, times, dims, n_sea_effective, t_chunk, 16, device)
     V, w, r = s["V"], s["w"], s["r"]
     c = _coeffs(V, s["psi0"])
@@ -150,7 +157,7 @@ def eig_traces_assembled_batched(
         norms = state_norms(states)
         energy = (w.unsqueeze(-1) * (amp.real * amp.real + amp.imag * amp.imag)).sum(dim=-2)
         rows[:, :, t0 : t0 + tc] = _assemble_rows(xyz, norms, energy, s["sea_mask"], idx_rare)
-    return rows.cpu().numpy()
+    return rows
 
 
 def eig_traces_assembled_batched32(
@@ -173,6 +180,14 @@ def eig_traces_assembled_batched32(
     before the rows are widened back to float64.  ``interpret`` is accepted
     and ignored (module docstring).
     """
+    return _eig32_rows(w, V, psi0, times, dims, n_sea_effective, idx_rare, t_chunk,
+                       device).cpu().numpy()
+
+
+def _eig32_rows(w, V, psi0, times, dims, n_sea_effective, idx_rare, t_chunk,
+                device) -> torch.Tensor:
+    """:func:`eig_traces_assembled_batched32`'s rows as a (B, 8, T) float64
+    tensor on the device."""
     s = _setup(w, V, psi0, times, dims, n_sea_effective, t_chunk, 8, device)
     V, w, r = s["V"], s["w"], s["r"]
     c = _coeffs(V, s["psi0"])
@@ -193,7 +208,7 @@ def eig_traces_assembled_batched32(
         norms = state_norms(states)
         energy = (w32 * (amp_re * amp_re + amp_im * amp_im)).sum(dim=-2)
         rows[:, :, t0 : t0 + tc] = _assemble_rows(xyz, norms, energy, mask32, idx_rare)
-    return rows.cpu().numpy()
+    return rows
 
 
 def traces_dict(row_block: np.ndarray) -> dict[str, np.ndarray]:

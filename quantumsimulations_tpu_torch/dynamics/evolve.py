@@ -47,11 +47,7 @@ from .observables import assemble_traces
 _EIG_MAX_DIM = 2048  # host eigh is cheap up to here (seconds on one core)
 _EXT_MAX_DIM = 8192  # the JAX package's dense ext limb chain reaches this far
 
-#: solvers of the JAX package not ported yet, each with the ROADMAP.md item
-#: that ports it (none left)
-_NOT_PORTED: dict[str, str] = {}
-
-#: the solvers this port runs
+#: the solvers this port runs: every solver of the JAX package
 PORTED = ("eig", "eig32", "ext", "cheb_step", "krylov", "chebyshev", "expm", "dopri")
 
 
@@ -64,12 +60,8 @@ def _auto_method(dim: int) -> str:
 
 
 def check_method(method: str) -> None:
-    """Raise for a solver this port does not run yet (or does not know);
-    "auto" resolves to a ported solver at every dim."""
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver_method {method!r} is not ported to PyTorch yet: {_NOT_PORTED[method]}"
-        )
+    """Raise for a solver this port does not know; "auto" resolves to a
+    ported solver at every dim."""
     if method not in PORTED and method != "auto":
         raise ValueError(f"unknown solver_method: {method!r}")
 

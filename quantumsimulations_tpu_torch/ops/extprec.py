@@ -520,9 +520,21 @@ def _limb_split(x: torch.Tensor, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_B
     an (M, n_limbs, K) buffer, the layout :func:`_cat_k` turns into the
     concatenated-K GEMM operand without a copy."""
     maxabs = float(x.abs().max()) if x.numel() else 0.0
+    scale, inv_scale = _limb_scales(maxabs, limb_bits)
+    return _split_scaled(x, inv_scale, n_limbs, limb_bits), scale
+
+
+def _limb_scales(maxabs: float, limb_bits: int = LIMB_BITS) -> tuple[float, float]:
+    """(scale, 1 / scale) of a split whose largest magnitude is ``maxabs``:
+    exp2(+-e), e = floor(log2 max|x|) + 1 - limb_bits, in XLA's arithmetic."""
     safe = maxabs if maxabs > 0 else 1.0
     e = _xla_floor_log2(safe) + 1.0 - limb_bits
-    scale, inv_scale = _xla_exp2(e), _xla_exp2(-e)
+    return _xla_exp2(e), _xla_exp2(-e)
+
+
+def _split_scaled(x: torch.Tensor, inv_scale: float, n_limbs: int = N_LIMBS,
+                  limb_bits: int = LIMB_BITS) -> torch.Tensor:
+    """The limbs of :func:`_limb_split` on a given grid ``inv_scale``."""
     if x.dim() == 2:
         buf = torch.empty((x.shape[0], n_limbs, x.shape[1]), dtype=torch.int8, device=x.device)
         limbs = buf.permute(1, 0, 2)
@@ -533,7 +545,7 @@ def _limb_split(x: torch.Tensor, n_limbs: int = N_LIMBS, limb_bits: int = LIMB_B
         lk = torch.round(r)  # half to even, as jnp.rint
         limbs[k] = lk.to(torch.int8)
         r = (r - lk) * float(2**limb_bits)
-    return limbs, scale
+    return limbs
 
 
 def _check_i32(K: int, n_limbs: int, limb_bits: int) -> None:

@@ -39,7 +39,11 @@ batched gather-multiply-``index_add_`` over the 72 limb pairs; int32 sums are
 exact in any order, so the bits are those of the JAX package's 72 separate
 products.
 
-Not ported yet: ``make_ext_apply_sharded`` (ROADMAP.md queue 1 item 5).
+``make_ext_apply_sharded`` is the same apply on a statevector plane whose DR
+columns are sharded over a process group (parallel/cheb_sharded.py): the
+buckets that contract over DR are summed across the ranks as one exact
+int32 ``all_reduce`` of canonical digits per apply, so its digits equal the
+single-rank apply's bit for bit.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import resolve_device
 from .embed import OperatorSum
@@ -340,6 +345,116 @@ def make_ext_apply_pallas(
         if X.Rcat is not None:
             w = kmm(T.reshape(L, 2 * DL, DR), X.Rcat)  # (L, 2*DL, rpos): [re; im]
             X.add_right(dig, w.reshape(L, 2, DL, X.rpos), L)
+        return carry_digits(dig, b, L)
+
+    return ExtApply(stacked), so, X.ops
+
+
+def make_ext_apply_sharded(
+    H: OperatorSum,
+    axis,
+    n_shards: int,
+    split: int | None = None,
+    scale: float = 1.0,
+    grid_bits: int = GRID_BITS,
+    grid_limbs: int = GRID_LIMBS,
+    device: str | torch.device = "cuda",
+):
+    """DR-column-sharded limb-domain apply (tier ``ext``).
+
+    ``axis`` is the process group of the mesh axis (the JAX package's mesh
+    axis name): the statevector plane (DL, DR) is sharded on its DR axis
+    over its ``n_shards`` ranks, the rank r of the group holding columns
+    [r * DR/n_shards, (r+1) * DR/n_shards).  Communication per apply:
+
+      * diag and left products: local (their contraction dim DL is whole);
+      * cross second stage and right bucket contract over the GLOBAL DR
+        axis: each rank computes its k-local digit partials for ALL output
+        columns, carries them to canonical (bounding each limb at ~2^bits so
+        the sum over ranks cannot overflow int32), and ONE int32
+        ``all_reduce`` of them sums the ranks exactly, after which each rank
+        keeps its own output columns.
+
+    Returns ``(apply, so, ops)``: ``apply(t_re, t_im)`` and
+    ``apply.stacked(T)`` map (L, [2,] DL, DR/n_shards) canonical limbs to
+    the same, equal to the single-rank :func:`make_ext_apply`'s columns bit
+    for bit (the same digit sums, carried once more).  Every rank of the
+    group calls each apply together."""
+    dev = resolve_device(device)
+    X = _ExtOperands(H, split, scale, grid_bits, grid_limbs, dev)
+    so, live, b, L = X.so, X.live, grid_bits, grid_limbs
+    DL, DR = so.DL, so.DR
+    assert DR % n_shards == 0, (DR, n_shards)
+    S = L + GRID_GUARD
+    DRl = DR // n_shards
+    k0 = dist.get_rank(axis) * DRl
+    cols = slice(k0, k0 + DRl)
+    lblocks, off = left_blocks(so, scale)
+    Lcat = X.pre(np.concatenate(lblocks, axis=0)) if lblocks else None
+    # cross R stacks (L, A, DRk, DRout) sliced to this rank's k range, then
+    # flattened to the (A * DRl, DR) operand that contracts (a, k) at once
+    R4 = {name: X.pre(cross_r_flat(R, scale)).reshape(L, A_n, DR, DR)[:, :, cols]
+          .reshape(L, A_n * DRl, DR).contiguous()
+          for name, R, A_n in (("cre", so.cross_re_R, live["A_re"]),
+                               ("cim", so.cross_im_R, live["A_im"])) if A_n}
+    diag_pairs = X.diag_pairs[..., cols].contiguous() if X.diag_pairs is not None else None
+    Rk = X.Rcat[:, cols].contiguous() if X.Rcat is not None else None
+
+    def _cross_digits(z, name, A_n):
+        """k-local second stage of one cross bucket for both planes and ALL
+        output columns -> (S, 2, DL, DR) digits."""
+        Zc = carry_digits(z[:, off[name]: off[name] + A_n * DL], b, L)  # (L, A*DL, 2*DRl)
+        Zt = Zc.reshape(L, A_n, DL, 2, DRl).permute(0, 3, 2, 1, 4).reshape(L, 2 * DL, A_n * DRl)
+        return _product_digits(Zt, R4[name], L, A_n * DRl, b).reshape(S, 2, DL, DR)
+
+    def stacked(T: torch.Tensor) -> torch.Tensor:
+        dig = torch.zeros((S, 2, DL, DRl), dtype=torch.int32, device=T.device)
+        if diag_pairs is not None:
+            dig.index_add_(0, X.ss, diag_pairs * T.index_select(0, X.ii))
+        glob = []  # digit partials of the buckets that contract over global DR
+        if Lcat is not None:
+            bcat = T.permute(0, 2, 1, 3).reshape(L, DL, 2 * DRl)  # [re | im]
+            z = _product_digits(Lcat, bcat, L, DL, b)  # (S, R, 2*DRl)
+
+            def rows(name):
+                o = off[name]
+                return z[:, o:o + DL].reshape(S, DL, 2, DRl).permute(0, 2, 1, 3)
+
+            if live["HLre"]:
+                dig += rows("HLre")
+            if live["HLim"]:  # (i * HL_im) rotates the planes
+                zz = rows("HLim")
+                dig[:, 0] -= zz[:, 1]
+                dig[:, 1] += zz[:, 0]
+            if live["A_re"] or live["A_im"]:
+                cross = torch.zeros((S, 2, DL, DR), dtype=torch.int32, device=T.device)
+                if live["A_re"]:
+                    cross += _cross_digits(z, "cre", live["A_re"])
+                if live["A_im"]:
+                    cc = _cross_digits(z, "cim", live["A_im"])
+                    cross[:, 0] -= cc[:, 1]
+                    cross[:, 1] += cc[:, 0]
+                glob.append(cross)
+        if Rk is not None:
+            w = _product_digits(T.reshape(L, 2 * DL, DRl), Rk, L, DRl, b)  # (S, 2*DL, rpos)
+            glob.append(w.reshape(S, 2, DL, X.rpos))
+        if glob:
+            # one exact collective: canonical digits summed as int32
+            g = carry_digits(torch.cat(glob, dim=-1), b).to(torch.int32)
+            dist.all_reduce(g, group=axis)
+            col = 0
+            if Lcat is not None and (live["A_re"] or live["A_im"]):
+                dig += g[..., k0:k0 + DRl]
+                col = DR
+            if Rk is not None:
+                gw = g[..., col:]
+                if live["HRre"]:
+                    o = X.roff["HRre"] + k0
+                    dig += gw[..., o:o + DRl]
+                if live["HRim"]:  # (i * HR_im) rotates the planes
+                    o = X.roff["HRim"] + k0
+                    dig[:, 0] -= gw[:, 1, :, o:o + DRl]
+                    dig[:, 1] += gw[:, 0, :, o:o + DRl]
         return carry_digits(dig, b, L)
 
     return ExtApply(stacked), so, X.ops

@@ -14,8 +14,11 @@ Port of ``quantumsimulations_tpu/sweep/grid2d.py``, which loops the same
 way.  Each row's directory is named to the second by the runner, as in the
 JAX package; where a row starts within the second of the previous one, the
 runner waits for the next second rather than share its directory (the JAX
-package merges the two rows there).  ``mesh`` (each row's batch sharded over devices) raises NotImplementedError
-(ROADMAP.md queue 1 item 5).
+package merges the two rows there).  ``mesh`` (a ``DeviceMesh`` from
+``parallel/mesh.py``) is passed on to each row's sweep, which shards its
+batch over the mesh's 'dp' axis; every rank of the mesh calls this with the
+same arguments, only the mesh's root rank writes, and every rank returns the
+same directories.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import mesh_device
 from ..utils.device import resolve_device
-from .runner import run_sweep_sea_detuning
+from .runner import run_sweep_sea_detuning, writes_here
 
 
 def run_grid2d(
@@ -58,19 +62,19 @@ def run_grid2d(
     The detuning list of each row scales with its f1A (0 .. factor * target),
     mirroring how the reference's 2D datasets are produced.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded sweep (mesh=) is not ported to PyTorch yet: "
-            "ROADMAP.md queue 1 item 5 (parallel)"
-        )
     resolve_device(device)  # raise before anything is written
-    os.makedirs(out_root, exist_ok=True)
+    if mesh is not None:
+        mesh_device(mesh, device)
+    root = writes_here(mesh)
+    if root:
+        os.makedirs(out_root, exist_ok=True)
     dirs = []
     for i, f1A in enumerate(f1A_values_Hz):
         target = f1A if target_equals_f1A else f1A_values_Hz[0]
         detunings = np.linspace(0.0, detuning_max_factor * target, n_detunings)
-        print(f"=== grid2d row {i + 1}/{len(f1A_values_Hz)}: f1A = {f1A / 1e3:.3f} kHz ===",
-              flush=True)
+        if root:
+            print(f"=== grid2d row {i + 1}/{len(f1A_values_Hz)}: f1A = {f1A / 1e3:.3f} kHz ===",
+                  flush=True)
         base = run_sweep_sea_detuning(
             f_Az=f_Az,
             f1A=f1A,
@@ -89,6 +93,7 @@ def run_grid2d(
             solver_method=solver_method,
             make_plots=make_plots,
             resume=resume,
+            mesh=mesh,
             device=device,
         )
         dirs.append(base)

@@ -23,9 +23,18 @@ Differences from the JAX package's runner:
     solve succeeds), "krylov", "chebyshev" and "dopri" (at its default
     tolerances, as the JAX runner calls it).  As in the JAX package,
     "cheb_step" (like "auto") is solved on the batched eigendecomposition
-    route.  ``mesh`` (the data-parallel sharded batch) raises
-    NotImplementedError before anything is written (ROADMAP.md queue 1
-    item 5).
+    route.
+  * ``mesh`` (a ``DeviceMesh`` from ``parallel/mesh.py``; every rank of it
+    calls the runner with the same arguments) shards each eig/eig32 batch
+    over its 'dp' axis (parallel/sweep_shard.py), as the JAX runner does;
+    the host eigh of the group stays whole on every rank, as there.  The
+    stepping solvers are solved one by one, unsharded, on every rank (the
+    JAX runner's controller solves them so), so no rank waits on another
+    while they run.  Only the mesh's root rank prints, claims the sweep
+    directory, keeps the "ext" snapshots and writes the tree: the others
+    return the same directory once their solve is done, and wait for the
+    root's host work only in the next call's first broadcast (a gloo group
+    whose timeout allows for it, ``parallel/mesh.HOST_WAIT_S``).
   * A sweep without ``base_dir`` is named to the second, as in the JAX
     package, but never writes into the directory of a sweep started earlier
     in the same second: it claims its directory atomically and, where the
@@ -79,6 +88,7 @@ from ..models.geometry import (
     shell_positions_with_rare_center,
 )
 from ..models.params import DipolarRareParams, get_derived_frequencies
+from ..parallel.mesh import broadcast_from_root, is_mesh_root, mesh_device
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
 
@@ -130,14 +140,17 @@ def _solve_one_stepping(
 
 
 def _solve_group(
-    models, times, log=print, solver_method="auto", device="cuda", ckpt_dirs=None
+    models, times, log=print, solver_method="auto", device="cuda", ckpt_dirs=None,
+    mesh=None,
 ) -> list[dict[str, np.ndarray]]:
     """Batched exact solve for models sharing identical Hilbert dims.
 
     Returns one reference-named trace dict per model; the observables are
-    assembled on the device and only the (B, 8, T) rows come back.  The
-    stepping solvers solve model by model instead (``ckpt_dirs``: one
-    snapshot directory per model, or None).
+    assembled on the device and only the (B, 8, T) rows come back.  With
+    ``mesh`` the batch is data-parallel sharded over its 'dp' axis
+    (parallel/sweep_shard.py).  The stepping solvers solve model by model
+    instead, on every rank of a mesh alike (``ckpt_dirs``: one snapshot
+    directory per model, or None).
     """
     method = "eig" if solver_method == "auto" else solver_method
     check_method(method)
@@ -145,7 +158,20 @@ def _solve_group(
         ckpt_dirs = ckpt_dirs or [None] * len(models)
         return [_solve_one_stepping(m, times, method, ckpt_dir=ck, device=device)
                 for m, ck in zip(models, ckpt_dirs)]
-    solve_fn = eig_traces_assembled_batched32 if method == "eig32" else eig_traces_assembled_batched
+    if mesh is not None:
+        from ..parallel.sweep_shard import (
+            eig_traces_assembled_sharded,
+            eig_traces_assembled_sharded32,
+        )
+
+        sharded_fn = (eig_traces_assembled_sharded32 if method == "eig32"
+                      else eig_traces_assembled_sharded)
+
+        def solve_fn(w, V, psi0, device, **kw):
+            return sharded_fn(w, V, psi0, mesh=mesh, **kw)
+    else:
+        solve_fn = (eig_traces_assembled_batched32 if method == "eig32"
+                    else eig_traces_assembled_batched)
 
     dims = models[0].dims
     dim = int(np.prod(dims))
@@ -176,6 +202,16 @@ def _solve_group(
         )
         outs.extend(traces_dict(rows[i]) for i in range(len(grp)))
     return outs
+
+
+def writes_here(mesh) -> bool:
+    """True where this process writes a sweep's files and log: without a
+    mesh, or on the mesh's root rank."""
+    return mesh is None or is_mesh_root(mesh)
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
 
 
 def run_sweep_sea_detuning(
@@ -209,15 +245,14 @@ def run_sweep_sea_detuning(
 
     Signature is keyword-compatible with the reference driver
     (sweep_sea_detuning.py:356-376) plus framework extensions
-    (solver_method / make_plots / resume / base_dir / device).
+    (solver_method / make_plots / resume / base_dir / mesh / device).
+    With ``mesh``, ranks other than the mesh's root print and write
+    nothing (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded sweep (mesh=) is not ported to PyTorch yet: "
-            "ROADMAP.md queue 1 item 5 (parallel)"
-        )
     check_method("eig" if solver_method == "auto" else solver_method)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
+    root = writes_here(mesh)
+    say = print if root else _quiet
     f1R = f1R_for_resonance(f1A, target_sea_detuning, 0.0)
     sea_detunings_Hz = np.asarray(sea_detunings_Hz, dtype=float)
     n_det = len(sea_detunings_Hz)
@@ -241,21 +276,21 @@ def run_sweep_sea_detuning(
     )
     stats = coupling_statistics(b, n_sea)
 
-    print("Estimated dipolar couplings from geometry + physical scales:")
-    print("  Sea–rare b_ij (all sea ↔ rare), |b| in Hz:")
-    print(f"    avg |b_AR| ≈ {stats['avg_b_AR_Hz']:.2f} Hz")
-    print(f"    rms |b_AR| ≈ {stats['rms_b_AR_Hz']:.2f} Hz")
-    print(f"    min |b_AR| ≈ {stats['min_b_AR_Hz']:.2f} Hz")
-    print(f"    max |b_AR| ≈ {stats['max_b_AR_Hz']:.2f} Hz")
-    print("  Sea–sea b_ij (all i<j), |b| in Hz:")
-    print(f"    avg |b_AA| ≈ {stats['avg_b_AA_Hz']:.2f} Hz")
-    print(f"    rms |b_AA| ≈ {stats['rms_b_AA_Hz']:.2f} Hz")
-    print(f"    min |b_AA| ≈ {stats['min_b_AA_Hz']:.2f} Hz")
-    print(f"    max |b_AA| ≈ {stats['max_b_AA_Hz']:.2f} Hz")
-    print("------------------------------------------------------------", flush=True)
+    say("Estimated dipolar couplings from geometry + physical scales:")
+    say("  Sea–rare b_ij (all sea ↔ rare), |b| in Hz:")
+    say(f"    avg |b_AR| ≈ {stats['avg_b_AR_Hz']:.2f} Hz")
+    say(f"    rms |b_AR| ≈ {stats['rms_b_AR_Hz']:.2f} Hz")
+    say(f"    min |b_AR| ≈ {stats['min_b_AR_Hz']:.2f} Hz")
+    say(f"    max |b_AR| ≈ {stats['max_b_AR_Hz']:.2f} Hz")
+    say("  Sea–sea b_ij (all i<j), |b| in Hz:")
+    say(f"    avg |b_AA| ≈ {stats['avg_b_AA_Hz']:.2f} Hz")
+    say(f"    rms |b_AA| ≈ {stats['rms_b_AA_Hz']:.2f} Hz")
+    say(f"    min |b_AA| ≈ {stats['min_b_AA_Hz']:.2f} Hz")
+    say(f"    max |b_AA| ≈ {stats['max_b_AA_Hz']:.2f} Hz")
+    say("------------------------------------------------------------", flush=True)
 
-    # -------- output directory --------
-    if base_dir is None:
+    # -------- output directory (the mesh's root claims it) --------
+    if root and base_dir is None:
         # named to the second, as the JAX package names it; where the name
         # is taken (a sweep started earlier in the same second, such as the
         # previous row of a 2D grid) this sweep waits for the next second
@@ -268,10 +303,12 @@ def run_sweep_sea_detuning(
                 break
             except FileExistsError:
                 time.sleep(0.05)
-    os.makedirs(base_dir, exist_ok=True)
+    if mesh is not None:
+        base_dir = broadcast_from_root(base_dir, mesh)
+    if root:
+        os.makedirs(base_dir, exist_ok=True)
+        save_geometry_npz(base_dir, positions, b, n_sea)
     pdf_path = os.path.join(base_dir, "sea_detuning_report.pdf")
-
-    save_geometry_npz(base_dir, positions, b, n_sea)
 
     global_params: dict[str, Any] = {
         "f_Az_Hz": float(f_Az),
@@ -306,19 +343,19 @@ def run_sweep_sea_detuning(
     }
     summary: dict[str, Any] = {"global_params": global_params, "sweep_results": []}
 
-    print("------------------------------------------------------------")
-    print("Starting sea detuning sweep (Ga sea, Al rare)")
-    print(f"  Output directory    : {base_dir}")
-    print(f"  Number of points    : {n_det}")
-    print(f"  f_Az (Ga Larmor)    : {f_Az/1e6:.3f} MHz")
-    print(f"  f_Rz (Al Larmor)    : {f_Rz/1e6:.3f} MHz")
-    print(f"  Target sea detuning : {target_sea_detuning/1e6:.3f} MHz")
-    print(f"  f1A (sea Rabi)      : {f1A/1e3:.3f} kHz")
-    print(f"  f1R (rare Rabi)     : {f1R/1e3:.3f} kHz")
-    print(f"  B0 (common)         : {B0_common:.3f} T")
-    print("  Detunings δ_A (Hz):")
-    print("   ", ", ".join(f"{d:+.1f}" for d in sea_detunings_Hz))
-    print("------------------------------------------------------------", flush=True)
+    say("------------------------------------------------------------")
+    say("Starting sea detuning sweep (Ga sea, Al rare)")
+    say(f"  Output directory    : {base_dir}")
+    say(f"  Number of points    : {n_det}")
+    say(f"  f_Az (Ga Larmor)    : {f_Az/1e6:.3f} MHz")
+    say(f"  f_Rz (Al Larmor)    : {f_Rz/1e6:.3f} MHz")
+    say(f"  Target sea detuning : {target_sea_detuning/1e6:.3f} MHz")
+    say(f"  f1A (sea Rabi)      : {f1A/1e3:.3f} kHz")
+    say(f"  f1R (rare Rabi)     : {f1R/1e3:.3f} kHz")
+    say(f"  B0 (common)         : {B0_common:.3f} T")
+    say("  Detunings δ_A (Hz):")
+    say("   ", ", ".join(f"{d:+.1f}" for d in sea_detunings_Hz))
+    say("------------------------------------------------------------", flush=True)
 
     times = np.linspace(0.0, t_final, steps)
     timer = StageTimer(device=dev)
@@ -365,12 +402,14 @@ def run_sweep_sea_detuning(
     for idx, delta_Hz in enumerate(sea_detunings_Hz):
         det_dir = os.path.join(base_dir, detuning_label(delta_Hz))
         metrics_path = os.path.join(det_dir, "metrics.json")
-        if resume and os.path.isfile(metrics_path):
+        if root and resume and os.path.isfile(metrics_path):
             with open(metrics_path, "r", encoding="utf-8") as f:
                 resumed_rows[idx] = json.load(f)
-            print(f"[{idx + 1}/{n_det}] resume: skipping δ_A = {delta_Hz:+.1f} Hz", flush=True)
+            say(f"[{idx + 1}/{n_det}] resume: skipping δ_A = {delta_Hz:+.1f} Hz", flush=True)
         else:
             todo.append((idx, float(delta_Hz)))
+    if mesh is not None:  # every rank solves the root's list
+        todo, resumed_rows = broadcast_from_root((todo, resumed_rows), mesh)
 
     # group (detuning, tag) sims by Hilbert dims for batching
     sims = []  # (idx, tag, params, model)
@@ -392,10 +431,10 @@ def run_sweep_sea_detuning(
             ckpt_dirs = [
                 os.path.join(base_dir, ".solver_ckpt", f"sim{i:04d}")
                 for i in sim_ids
-            ] if solver_method == "ext" else None
+            ] if solver_method == "ext" and root else None
             outs = _solve_group(
-                [sims[i][3] for i in sim_ids], times,
-                solver_method=solver_method, device=dev, ckpt_dirs=ckpt_dirs,
+                [sims[i][3] for i in sim_ids], times, log=say,
+                solver_method=solver_method, device=dev, ckpt_dirs=ckpt_dirs, mesh=mesh,
             )
             for i, out in zip(sim_ids, outs):
                 idx, tag, _, _ = sims[i]
@@ -403,11 +442,13 @@ def run_sweep_sea_detuning(
     solve_wall = time.perf_counter() - t_solve0
     n_solved = len(sims)
     if n_solved:
-        print(
+        say(
             f"Solved {n_solved} simulations in {solve_wall:.2f} s "
             f"({solve_wall / n_solved:.3f} s/sim amortized)",
             flush=True,
         )
+    if not root:  # the root writes the tree alone
+        return base_dir
 
     # -------- per-point artifacts / metrics / plots --------
     if make_plots:

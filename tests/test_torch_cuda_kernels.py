@@ -32,7 +32,9 @@ rounding of a decision);
 the limb tier against the f64 tier on the card, 1e-11, and against the CPU,
 1e-12; the 2D grid (``run_grid2d``) on the card against the CPU, 1e-10 on
 every saved trace (the eig route's bar above) and 1e-8 relative on the
-metrics.
+metrics; at world size 1 over NCCL (a one-rank process group on the card),
+the dp-sharded eig and eig32 rows and the DR-sharded limb apply against the
+unsharded card runs, equal bit for bit.
 """
 
 import numpy as np
@@ -586,3 +588,73 @@ def test_grid2d_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
                     assert set(zc.files) == set(zh.files)
                     for key in zh.files:
                         assert np.abs(zc[key] - zh[key]).max() <= 1e-10, (label, tag, key)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL process group on this card (the port's
+    ``initialize_multihost``, a file rendezvous) and its (1, 1) mesh; the
+    group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from quantumsimulations_tpu_torch.parallel.distributed import initialize_multihost
+    from quantumsimulations_tpu_torch.parallel.mesh import make_mesh
+
+    assert initialize_multihost(f"file://{tmp_path / 'rdv'}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_mesh(1, sp=1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sweep_batch(n: int):
+    """n models of the eig32 test's physics, 500 Hz apart in sea detuning."""
+    kw = dict(
+        n_sea=4, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
+        B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
+        omega_rf_rare=6.976e7 * 3.0, phi_sea=np.pi / 2, phi_rare=np.pi / 2,
+        dipolar_scale=1e-7 * 1.054571817e-34, shell_scale=0.282393e-9, drive_sea=True,
+        drive_rare=True, is_spin_three_half=False,
+    )
+    models = [build_model(DipolarRareParams(
+        **kw, omega_rf_sea=8.1812e7 * 3.0 - 2 * np.pi * 500.0 * (i + 1))) for i in range(n)]
+    w, V = zip(*[np.linalg.eigh(m.hamiltonian.to_dense()) for m in models])
+    return (np.stack(w), np.stack(V), np.stack([m.psi0 for m in models]),
+            np.linspace(0.0, 0.05, 2001), models[0].dims,
+            np.asarray([m.n_sea_effective for m in models]), models[0].idx_rare)
+
+
+def test_dp_sharded_sweep_on_card_equals_unsharded(nccl_mesh):
+    """World size 1 over NCCL: the dp-sharded eig and eig32 rows equal the
+    unsharded card rows bit for bit (dp = 1 gives the same batch and time
+    chunks), and the eig32 run launches the f32 kernel."""
+    from quantumsimulations_tpu_torch.parallel.sweep_shard import (
+        eig_traces_assembled_sharded,
+        eig_traces_assembled_sharded32,
+    )
+
+    args = _sweep_batch(5)
+    np.testing.assert_array_equal(eig_traces_assembled_sharded(*args, nccl_mesh),
+                                  teig.eig_traces_assembled_batched(*args, device="cuda"))
+    before = launch_counts["cmatmul_f32"]
+    got32 = eig_traces_assembled_sharded32(*args, nccl_mesh)
+    assert launch_counts["cmatmul_f32"] > before
+    np.testing.assert_array_equal(got32,
+                                  teig.eig_traces_assembled_batched32(*args, device="cuda"))
+
+
+def test_ext_apply_sharded_on_card_equals_single_card(nccl_mesh):
+    """World size 1 over NCCL: the DR-sharded limb apply (its int32 digit
+    all_reduce included) equals the single-card ext apply bit for bit."""
+    from quantumsimulations_tpu_torch.ops import split_apply_ext as spx
+
+    m = build_model(DipolarRareParams(**{**_SMALL, "n_sea": 5}))
+    H = m.hamiltonian
+    single, so, ops = spx.make_ext_apply(H, scale=1e-6, device="cuda")
+    sharded, _, _ = spx.make_ext_apply_sharded(H, nccl_mesh.get_group("sp"), 1, scale=1e-6,
+                                               device="cuda")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    psi = torch.randn(2, so.DL, so.DR, generator=gen, dtype=torch.float64)
+    T = ops.split((psi / psi.norm()).to("cuda"))
+    torch.testing.assert_close(sharded.stacked(T), single.stacked(T), rtol=0, atol=0)

@@ -142,7 +142,7 @@ def test_auto_resolves_to_ext_between_2048_and_8192():
     for dim in (4096, 8192):
         assert tevolve._auto_method(dim) == jevolve._auto_method(dim) == "ext"
     assert tevolve._auto_method(16384) == jevolve._auto_method(16384) == "cheb_step"
-    assert "ext" not in tevolve._NOT_PORTED
+    tevolve.check_method("ext")  # ported: no refusal
 
 
 def test_simulate_rare_auto_takes_ext_and_matches_reference(monkeypatch):

@@ -177,12 +177,22 @@ def test_sweep2d_cli_skip_report(tmp_path):
     assert not os.path.isfile(os.path.join(root, "stable_region_stats.json"))
 
 
-def test_unported_mesh_and_missing_cuda_write_nothing(tmp_path, monkeypatch):
+def test_unported_mesh_and_missing_cuda_write_nothing(tmp_path, monkeypatch, capsys):
+    """What cannot run raises before anything is written: ``--mesh-devices``
+    outside torchrun (the sharded grid itself runs in
+    tests/test_torch_sweep_shard.py), a mesh on another device than the one
+    asked for, and CUDA where there is none."""
+    import types
+
     root = tmp_path / "grid"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(SystemExit):
         tsweep2d(CLI_ARGS + ["--out-root", str(root), "--mesh-devices", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tgrid(**GRID, out_root=str(root), mesh=object(), device="cpu")
+    assert "run under torchrun --nproc_per_node 2" in capsys.readouterr().err
+    cuda_mesh = types.SimpleNamespace(device_type="cuda", get_coordinate=lambda: (0, 0))
+    with pytest.raises(ValueError, match="the mesh is on 'cuda'"):
+        tgrid(**GRID, out_root=str(root), mesh=cuda_mesh, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device 'cuda' requested"):
         tgrid(**GRID, out_root=str(root))

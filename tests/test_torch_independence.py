@@ -57,8 +57,16 @@ def _probe(imports: str) -> tuple[list[str], bool]:
         "import quantumsimulations_tpu_torch.dynamics.dopri, quantumsimulations_tpu_torch.models.labframe, "
         "quantumsimulations_tpu_torch.cli.simulate, quantumsimulations_tpu_torch.ops.split_apply_limb, "
         "quantumsimulations_tpu_torch.utils.cache, quantumsimulations_tpu_torch.utils.profiling",
+        "import quantumsimulations_tpu_torch.parallel.mesh, "
+        "quantumsimulations_tpu_torch.parallel.distributed, "
+        "quantumsimulations_tpu_torch.parallel.sweep_shard, "
+        "quantumsimulations_tpu_torch.parallel.state_sharded, "
+        "quantumsimulations_tpu_torch.parallel.cheb_sharded, "
+        "quantumsimulations_tpu_torch.parallel.expm_sharded, "
+        "quantumsimulations_tpu_torch.native",
     ],
-    ids=["every_port_module", "chip_smoke", "ext_route_modules", "solver_and_cli_modules"],
+    ids=["every_port_module", "chip_smoke", "ext_route_modules", "solver_and_cli_modules",
+         "parallel_and_native_modules"],
 )
 def test_no_jax_and_no_reference_package(imports):
     assert _probe(imports)[0] == []

@@ -130,13 +130,28 @@ def test_happy_breakdown_stays_finite_and_exact():
     assert np.abs(got - want).max() <= 1e-12
 
 
-def test_sharded_form_is_not_ported():
-    H = tembed.OperatorSum((2,), (tembed.ProductTerm(1.0, ((0, "x"),)),))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tk.make_krylov_step(H, 1e-3, axis_name="state", device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tk._lanczos_expm_substep(lambda v: v, torch.ones(2, dtype=torch.complex128), 1e-3, 2,
-                                 axis_name="state")
+def test_sharded_form_is_not_ported(tmp_path):
+    """The sharded form (axis_name = the 'sp' process group) is ported: on a
+    one-rank gloo group its step equals the unsharded step (the reductions
+    over one rank leave every value as it was, up to the norm's rounding).
+    The multi-rank form runs in tests/test_torch_state_sharded.py."""
+    import torch.distributed as dist
+
+    kw = stepper_kwargs(n_sea=3)
+    model = tbuild(TParams(**kw))
+    H = model.hamiltonian
+    psi = torch.as_tensor(model.psi0)
+    step, _ = tk.make_krylov_step(H, 2e-5, m=24, device=CPU)
+    want = step(psi)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1)
+    try:
+        sharded, _ = tk.make_krylov_step(H, 2e-5, m=24, axis_name=dist.group.WORLD, device=CPU)
+        got = sharded(psi)
+    finally:
+        dist.destroy_process_group()
+    assert torch.abs(got - want).max() <= 1e-13
 
 
 def test_spin32_rare_site_takes_the_generic_apply():

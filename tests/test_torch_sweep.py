@@ -210,10 +210,14 @@ def test_a_sweep_never_writes_into_an_earlier_sweeps_directory(tmp_path, monkeyp
 
 
 def test_unported_solver_writes_nothing(tmp_path):
-    """Every solver is ported now; what is not (the sharded sweep, mesh=)
-    and an unknown solver raise before anything is written."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsweep(**SWEEP, mesh=object(), base_dir=str(tmp_path / "x"), device="cpu")
+    """Every solver and the sharded sweep (mesh=, tests/test_torch_sweep_shard.py)
+    are ported now; a mesh on another device than the one asked for and an
+    unknown solver raise before anything is written."""
+    import types
+
+    cuda_mesh = types.SimpleNamespace(device_type="cuda", get_coordinate=lambda: (0, 0))
+    with pytest.raises(ValueError, match="the mesh is on 'cuda'"):
+        tsweep(**SWEEP, mesh=cuda_mesh, base_dir=str(tmp_path / "x"), device="cpu")
     with pytest.raises(ValueError, match="unknown solver_method"):
         tsweep(**SWEEP, solver_method="bogus", base_dir=str(tmp_path / "x"), device="cpu")
     assert not (tmp_path / "x").exists()
