@@ -30,12 +30,15 @@ Every solver of the JAX package's ``simulate_rare`` runs here.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..models.dipolar import build_model
 from ..models.params import DipolarRareParams
 from ..utils.device import resolve_device
+from ..utils.profiling import tracing
 from .eig_propagator import (
     eig_traces_assembled_batched,
     eig_traces_assembled_batched32,
@@ -74,11 +77,20 @@ def simulate_rare(
     Port-only parameters: ``device`` (default "cuda"; raises without CUDA)
     and ``timer``, a :class:`..utils.profiling.StageTimer` handed to the
     stepping routes ("ext", "cheb_step", the Ozaki "expm") for their stage
-    split."""
+    split.  With a timer the model build is its stage "build_model", and the
+    timer is the active tracer of the whole evolution (the int8 GEMMs' launch
+    spans and counters, ``ops/extprec.py::int_mm``)."""
     if params.steps < 2 or params.t_final <= 0.0:
         raise ValueError("Bad time grid: steps >= 2 and t_final > 0.")
 
-    model = build_model(params)
+    with tracing(timer):
+        with timer.stage("build_model") if timer is not None else contextlib.nullcontext():
+            model = build_model(params)
+        return _solve(params, model, device, timer)
+
+
+def _solve(params: DipolarRareParams, model, device, timer):
+    """:func:`simulate_rare` on a built model: the solver dispatch."""
     t = np.linspace(0.0, params.t_final, params.steps)
     dims = model.dims
     dim = int(np.prod(dims))

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import count, launch_span
 from .limb_kernels import carry_digits
 
 EXT_LIMBS = 15  # 15 * 5 = 75 bits below the grid top
@@ -208,7 +209,12 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     cuBLASLt takes M > 16 and K, N multiples of 8; smaller or ragged
     operands are padded with zeros here (the same rule on every device, so
-    the CPU tests run this path too)."""
+    the CPU tests run this path too).
+
+    Under an active tracer (``utils/profiling.py``) the GEMM is a launch
+    span ``int8_gemm``, and the innermost open stage counts
+    ``int8_gemm.calls`` and ``int8_gemm.ops`` (2 M K N of the padded
+    operands)."""
     M, K = a.shape
     N = b.shape[1]
     pm, pk, pn = max(17 - M, 0), (-K) % 8, (-N) % 8
@@ -216,7 +222,10 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = torch.nn.functional.pad(a, (0, pk, 0, pm))
     if pk or pn:
         b = torch.nn.functional.pad(b, (0, pn, 0, pk))
-    out = torch._int_mm(a, b)
+    with launch_span("int8_gemm"):
+        out = torch._int_mm(a, b)
+    count("int8_gemm.calls", 1)
+    count("int8_gemm.ops", 2 * (M + pm) * (K + pk) * (N + pn))
     return out[:M, :N] if (pm or pn) else out
 
 
