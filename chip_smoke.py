@@ -38,6 +38,16 @@ Phases, each printing one line as it finishes:
      device times per call (CUDA-graph replay) of the kernel, the plain
      version and two yardsticks (the same-function PyTorch chain, and a
      float32 matmul on a precomputed |psi|^2), and the eager call's time;
+ 6b. int8_gemm (the limb products' GEMM, ops/int8_gemm.py) against
+     torch._int_mm bit for bit (two calls) on the ext chain's operand
+     layout, at the chain's longest and shortest diagonals at its panel
+     (8192, 122880, 512) and (8192, 8192, 512), a doubling pass's N 8 and
+     the Ozaki chain's longest diagonal at N 8192 and 128, with its launch
+     plan, device times per call (CUDA-graph replay) of the kernel and of
+     torch._int_mm on its own K-contiguous operands (the library yardstick;
+     the port never calls it on the card), the eager call's time and the
+     bound (operations at the int8 tensor-core rate or bytes at the HBM
+     rate);
   7. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
@@ -508,6 +518,58 @@ def check_limb(name, peaks, seed: int) -> dict:
         "int_mm_digits_ms": int_mm_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "gop": ops / 1e9,
+        "mbytes": nbytes / 1e6,
+    }
+
+
+#: int8_gemm shapes (M, K, N): the ext chain's longest and shortest
+#: diagonals at its panel (the first is the main path's, reported in the
+#: kernels line), a doubling pass's state product, the Ozaki chain's longest
+#: diagonal at a squaring and at an advance
+INT8_GEMM_SHAPES = ((8192, 122880, 512), (8192, 8192, 512), (8192, 122880, 8),
+                    (8192, 90112, 8192), (8192, 90112, 128))
+
+
+def check_int8_gemm(shape, peaks, seed: int) -> dict:
+    """int8_gemm against torch._int_mm at one (M, K, N), bit for bit (two
+    calls), on the ext chain's layout (A a K slice of a 15-limb stack, B
+    the transpose of a K-contiguous copy's slice), with timings."""
+    import torch
+
+    from quantumsimulations_tpu_torch.ops.int8_gemm import _sm_count, int8_gemm, int8_gemm_plan
+
+    M, K, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    width = max(K, 15 * 8192)
+    a = random_limbs((1, M, width), gen)[0, :, :K]
+    b = random_limbs((1, N, width), gen)[0, :, :K].t()
+    a_lib, b_lib = a.contiguous(), b.t().contiguous()  # the library's own K-contiguous operands
+    got, again = int8_gemm(a, b), int8_gemm(a, b)
+    want = torch._int_mm(a_lib, b_lib.t())
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError(f"int8_gemm {shape}: {int((got != want).sum())} sums differ from "
+                             f"torch._int_mm, two calls equal: {torch.equal(got, again)}")
+    ms = graph_ms(lambda: int8_gemm(a, b), n=5, reps=3)
+    library_ms = graph_ms(lambda: torch._int_mm(a_lib, b_lib.t()), n=5, reps=3)
+    call_ms = cuda_ms(lambda: int8_gemm(a, b), reps=10)
+    _, _, int8_peak, bytes_peak, _, _ = peaks
+    ops = 2.0 * M * K * N
+    nbytes = float(M * K + K * N + 4 * M * N)
+    t_ops, t_bytes = ops / int8_peak * 1e3, nbytes / bytes_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    return {
+        "shape": [M, K, N],
+        "plan": list(int8_gemm_plan(M, N, K, _sm_count(a.device))),
+        "max_abs_err": 0,
+        "ms": ms,
+        "call_ms": call_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "roofline": bound / ms,
+        "library_roofline": bound / library_ms,
         "gop": ops / 1e9,
         "mbytes": nbytes / 1e6,
     }
@@ -1042,8 +1104,9 @@ def n12_ext(oracle) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(launch_counts)
-    if launches["ext_obs_diagonals_int8"] <= 0:
-        raise AssertionError(f"n12: ext_obs_diagonals_int8 was not launched: {launches}")
+    if launches["ext_obs_diagonals_int8"] <= 0 or launches["int8_gemm"] <= 0:
+        raise AssertionError(f"n12: ext_obs_diagonals_int8 or int8_gemm was not launched: "
+                             f"{launches}")
     if "squarings" not in timer.stages:
         raise AssertionError(f"n12: simulate_rare did not take the ext route: {timer.stages}")
     rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
@@ -2085,6 +2148,16 @@ def main() -> int:
             f"matmul on a precomputed |psi|^2 {r['yardsticks_ms']['matmul_on_p2']:.5f}; eager "
             f"call {r['call_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
+    gemm = {}
+    for i, gshape in enumerate(INT8_GEMM_SHAPES):
+        r = gemm[gshape] = check_int8_gemm(gshape, peaks, seed=40 + i)
+        say(f"[6b/20] int8_gemm {gshape}: equal to torch._int_mm bit for bit (two calls), plan "
+            f"{r['plan']}; device ms per call: kernel {r['ms']:.4f}, torch._int_mm "
+            f"{r['library_ms']:.4f}; eager call {r['call_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), {r['roofline']:.1%} of it (torch._int_mm "
+            f"{r['library_roofline']:.1%})")
+    gemm_path = gemm[INT8_GEMM_SHAPES[0]]
+
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
         dir64, dir32 = os.path.join(tmp, "eig"), os.path.join(tmp, "eig32")
@@ -2417,6 +2490,26 @@ def main() -> int:
             "n12_krylov": kry,
         },
     ]
+    kernels.append({
+        "name": "int8_gemm",
+        "route": "cuda",
+        "source": "quantumsimulations_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "none: the JAX package's limb products are XLA dots (s8 x s8 -> s32)",
+        "launches": n12["launches"]["int8_gemm"],
+        "max_abs_err": 0,
+        "ms": gemm_path["ms"],
+        "kernel_ms": gemm_path["ms"],
+        "plain_ms": None,
+        "bound_ms": gemm_path["bound_ms"],
+        "bound_by": gemm_path["bound_by"],
+        "library_ms": gemm_path["library_ms"],
+        "library_call": "torch._int_mm on K-contiguous operands (cuBLASLt); the port never "
+                        "calls it on the card",
+        "timing": "ms, library_ms: device time per call (CUDA-graph replay); call_ms: one eager "
+                  "call under CUDA events (host work included)",
+        "call_ms": gemm_path["call_ms"],
+        "shapes": {str(k): v for k, v in gemm.items()},
+    })
     say(f"[20/20] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()

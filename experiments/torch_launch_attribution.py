@@ -12,7 +12,8 @@ Prints, and writes as JSON to ``--out`` where given:
     (``portbench/launches.py``), the unattributed seconds and their share of
     the busy time, and the launch calls the profiler recorded;
   * where the int8 GEMM kernels (by name) landed, against the program's
-    ``int8_gemm.calls``;
+    ``int8_gemm.calls``, and the kernel variants launched
+    (``int8_gemm.wide``, ``int8_gemm.narrow``);
   * ``int8_gemm_s``, ``int8_gemm_roofline``, ``limb_elementwise_s`` and
     ``model_build_s`` as PERF.md's list of layers defines them;
   * the sum check: ``int8_gemm_s`` + ``limb_elementwise_s`` + the card's idle
@@ -121,7 +122,8 @@ def main(argv=None) -> int:
     reduce_s = time.perf_counter() - p0
     spans = [s for s in timer.spans if s.evolution == 0]
     by_span = launches.attribute(device, launch, spans, w0, w1)
-    gemm_idx = [i for i, n in enumerate(names) if "gemm_s8" in n]
+    # cuBLASLt's int8 kernels (a parent without the port's own) and the port's
+    gemm_idx = [i for i, n in enumerate(names) if "gemm_s8" in n or "int8_gemm_kernel" in n]
     gemm_by_span = launches.attribute([device[i] for i in gemm_idx], launch, spans, w0, w1)
     linked = Counter(launch_names.get(c, "<none>") for _, _, c in device)
 
@@ -138,6 +140,8 @@ def main(argv=None) -> int:
     unattr = by_span.get(launches.UNATTRIBUTED, {"seconds": 0.0, "kernels": 0})
     ops = sum(c.get("int8_gemm.ops", 0) for c in timer.counters.values())
     calls = sum(c.get("int8_gemm.calls", 0) for c in timer.counters.values())
+    variants = {v: sum(c.get(f"int8_gemm.{v}", 0) for c in timer.counters.values())
+                for v in ("wide", "narrow")}
     peaks = counts.card_peaks(torch.cuda.get_device_name(0))
     dim = int(np.prod(reference.dims_of(record)))
     least = (counts.chain_ops("ext", dim, timer.counts, 1)
@@ -158,6 +162,7 @@ def main(argv=None) -> int:
         "stages": dict(timer.stages), "stage_calls": dict(timer.counts),
         "counters": {str(k): v for k, v in timer.counters.items()},
         "int8_gemm.calls": calls, "int8_gemm.ops": ops, "least_ops": least,
+        "int8_gemm.wide": variants["wide"], "int8_gemm.narrow": variants["narrow"],
         "ops_over_least": ops / least - 1.0,
         "int8_gemm_s": gemm_s,
         "int8_gemm_roofline": 100.0 * ops / peaks["int8_ops_per_s"] / gemm_s if gemm_s else None,

@@ -25,7 +25,8 @@ holding both planes.  Arithmetic tiers (``arithmetic=``):
     hand-written CUDA kernel ``limb_matmul_canon`` (ops/limb_kernels.py);
   * ``"limb"`` — the float64 recurrence with every apply product an exact
     int8 limb product of the Ozaki tier (ops/split_apply_limb.py, 9 limbs
-    of 6 bits, ``torch._int_mm``).
+    of 6 bits, ``ops/extprec.py::int_mm``: the int8 GEMM kernel on the
+    card).
 
 Each dispatch (``steps_per_dispatch`` output steps: the host loop's chunk
 between row fetches and checkpoints) stacks its pre-advance states and turns

@@ -12,16 +12,18 @@ are exact integers, and renormalisation is an exact carry cascade.  The only
 error is the truncation below limb L.
 
 Limb products.  The JAX package runs each limb-pair product as an XLA dot
-``s8 x s8 -> s32``; here it is ``torch._int_mm`` (cuBLASLt's int8 GEMM on
-the card, an integer GEMM on the CPU).  The limb pairs of one significance
-diagonal are laid side by side along K, so each diagonal is one GEMM per
-Karatsuba term: the left operand is the limb stack concatenated along K
-(:class:`ExtLeft`), the right operand the limb stack in reversed limb order,
-so that the pairs (j, s - j) of diagonal s are one contiguous K range of
-both.  Int32 sums are exact in any order (headroom asserted as in the JAX
-package), so the digits, and every carried limb, equal the JAX package's bit
-for bit.  cuBLASLt takes int8 GEMMs with M > 16 and K, N multiples of 8;
-:func:`int_mm` pads smaller shapes with zeros, which changes no sum.
+``s8 x s8 -> s32``; here it is :func:`int_mm`: on the card the hand-written
+Hopper int8 GEMM ``csrc/int8_gemm.cu`` (``ops/int8_gemm.py``), on the CPU
+``torch._int_mm``.  The limb pairs of one significance diagonal are laid
+side by side along K, so each diagonal is one GEMM per Karatsuba term: the
+left operand is the limb stack concatenated along K (:class:`ExtLeft`), the
+right operand the limb stack in reversed limb order, so that the pairs
+(j, s - j) of diagonal s are one contiguous K range of both.  Each limb
+takes a whole number of 16-byte rows of K (zeros after a ragged K, which
+change no sum), so every GEMM operand starts and strides on 16 bytes, as
+the kernel reads them.  Int32 sums are exact in any order (headroom
+asserted as in the JAX package), so the digits, and every carried limb,
+equal the JAX package's bit for bit.
 
 The two limb splits of the Hamiltonian decide the bits of the whole chain
 (they may canonicalise ties differently, both exact), so both are ported as
@@ -43,6 +45,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.profiling import count, launch_span
+from .int8_gemm import int8_gemm
 from .limb_kernels import carry_digits
 
 EXT_LIMBS = 15  # 15 * 5 = 75 bits below the grid top
@@ -205,35 +208,40 @@ def _ext_pairs(L: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact, via ``torch._int_mm``.
-
-    cuBLASLt takes M > 16 and K, N multiples of 8; smaller or ragged
-    operands are padded with zeros here (the same rule on every device, so
-    the CPU tests run this path too).
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact
+    (:func:`~.int8_gemm.int8_gemm`): on a CUDA tensor the hand-written
+    Hopper GEMM, which takes A with unit stride along K and B K-contiguous
+    (the transpose of an (N, K) row-major copy), 16-byte aligned; on the
+    CPU ``torch._int_mm`` on zero-padded operands.
 
     Under an active tracer (``utils/profiling.py``) the GEMM is a launch
     span ``int8_gemm``, and the innermost open stage counts
-    ``int8_gemm.calls`` and ``int8_gemm.ops`` (2 M K N of the padded
-    operands)."""
+    ``int8_gemm.calls`` and ``int8_gemm.ops``: 2 M K N of the operands as
+    ``torch._int_mm`` takes them (M at least 17, K and N rounded up to 8)
+    on every device, so the counts compare across devices and commits.  On
+    the card the wrapper adds ``int8_gemm.wide`` or ``int8_gemm.narrow``,
+    the kernel variant launched."""
     M, K = a.shape
     N = b.shape[1]
-    pm, pk, pn = max(17 - M, 0), (-K) % 8, (-N) % 8
-    if pm or pk:
-        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
-    if pk or pn:
-        b = torch.nn.functional.pad(b, (0, pn, 0, pk))
     with launch_span("int8_gemm"):
-        out = torch._int_mm(a, b)
+        out = int8_gemm(a, b)
     count("int8_gemm.calls", 1)
-    count("int8_gemm.ops", 2 * (M + pm) * (K + pk) * (N + pn))
-    return out[:M, :N] if (pm or pn) else out
+    count("int8_gemm.ops", 2 * max(M, 17) * -(-K // 8) * 8 * -(-N // 8) * 8)
+    return out
+
+
+def _whole_rows(K: int) -> int:
+    """K rounded up to whole 16-byte rows: a limb's column stride in the
+    concatenated GEMM operands."""
+    return -(-K // 16) * 16
 
 
 @dataclass
 class ExtLeft:
     """Left operand of :func:`ext_cmatmul`, prepared once for many products:
     the real, imaginary and Karatsuba-sum limb stacks (L, M, K) laid out as
-    (M, L * K) int8, limb j at columns [j*K, (j+1)*K)."""
+    (M, L * Kw) int8, limb j at columns [j*Kw, j*Kw + K) and zeros up to
+    (j+1)*Kw, Kw = K in whole 16-byte rows (:func:`_cat_k`)."""
 
     re: torch.Tensor
     im: torch.Tensor
@@ -243,8 +251,13 @@ class ExtLeft:
 
 
 def _cat_k(a: torch.Tensor) -> torch.Tensor:
+    """(L, M, K) limb stack -> (M, L * Kw) int8, limb j at columns
+    [j*Kw, j*Kw + K), zeros after it (Kw = :func:`_whole_rows` (K))."""
     L, M, K = a.shape
-    return a.permute(1, 0, 2).contiguous().view(M, L * K)
+    kw = _whole_rows(K)
+    if kw != K:
+        a = torch.nn.functional.pad(a, (0, kw - K))
+    return a.permute(1, 0, 2).contiguous().view(M, L * kw)
 
 
 def ext_left(are: torch.Tensor, aim: torch.Tensor) -> ExtLeft:
@@ -255,16 +268,20 @@ def ext_left(are: torch.Tensor, aim: torch.Tensor) -> ExtLeft:
 
 
 def _right_rev(b: torch.Tensor) -> torch.Tensor:
-    """(L, K, N) limb stack -> (N, L * K) int8, limbs in REVERSED order:
-    limb i at columns [(L-1-i)*K, (L-i)*K).  Its transpose is the (L*K, N)
-    right operand whose K range [(L-1-s+j0)*K, (L-1-s+j1)*K) pairs limb
-    s - j with limb j of the left operand for j0 <= j < j1.
+    """(L, K, N) limb stack -> (N, L * Kw) int8, limbs in REVERSED order:
+    limb i at columns [(L-1-i)*Kw, (L-1-i)*Kw + K), zeros after it (Kw =
+    :func:`_whole_rows` (K)).  Its transpose is the (L*Kw, N) right operand
+    whose K range [(L-1-s+j0)*Kw, (L-1-s+j1)*Kw) pairs limb s - j with limb
+    j of the left operand (:func:`_cat_k`) for j0 <= j < j1.
 
     The copy must be K-contiguous: a view of the permuted stack (which
-    ``reshape`` would return, the limb and K axes merging) is N-contiguous,
-    and cuBLASLt then takes a non-tensor-core int8 kernel ~8x slower."""
+    ``reshape`` would return, the limb and K axes merging) is
+    N-contiguous, a layout the card's int8 GEMM refuses."""
     L, K, N = b.shape
-    return b.flip(0).permute(2, 0, 1).contiguous().view(N, L * K)
+    kw = _whole_rows(K)
+    if kw != K:
+        b = torch.nn.functional.pad(b, (0, 0, 0, kw - K))
+    return b.flip(0).permute(2, 0, 1).contiguous().view(N, L * kw)
 
 
 def _ext_cpanel_product(left: ExtLeft, b_re: torch.Tensor, b_im: torch.Tensor):
@@ -278,7 +295,7 @@ def _ext_cpanel_product(left: ExtLeft, b_re: torch.Tensor, b_im: torch.Tensor):
     Each GEMM sums the diagonal's limb pairs along its K; EXT_GUARD extra
     diagonals below the last kept limb feed carries upward and are then
     dropped, as in the JAX package."""
-    L, K = left.L, left.K
+    L, K = left.L, _whole_rows(left.K)
     N = b_re.shape[2]
     r_re, r_im, r_sum = _right_rev(b_re), _right_rev(b_im), _right_rev(b_re + b_im)
     M = left.re.shape[0]
@@ -491,9 +508,8 @@ def ext_split_upload_coo_pair_host(
 # equal the JAX package's on its CPU backend.  The digit sums are exact in
 # any order, so the diagonal's limb pairs run as one ``int_mm`` over a
 # concatenated K (the left operand's limbs side by side, the right
-# operand's in reversed limb order, as :func:`_ext_cpanel_product` lays
-# them out; the right operand K-contiguous for cuBLASLt's tensor-core
-# kernel).
+# operand's in reversed limb order and K-contiguous, each limb in whole
+# 16-byte rows, as :func:`_ext_cpanel_product` lays them out).
 #
 # TPU workarounds that are no-ops here: the JAX package's ``_SYNC_ELEMS``
 # and the ``fetch_sync`` between the four real products of
@@ -571,15 +587,7 @@ def _accumulate_products(A, B, out_shape, n_limbs: int, limb_bits: int):
     ``_accumulate_products`` has: a few ulp of the result).  The callers
     multiply by the scales as the JAX package's compiled programs do
     (:func:`_scale_product`)."""
-    K = A.shape[2]
-    if K % 16:
-        # zero limbs add nothing; a K of whole 16-byte rows keeps every
-        # GEMM operand's row stride and start aligned, as cuBLASLt's int8
-        # GEMM requires (a stride of n * 257 bytes is refused)
-        pad = 16 - K % 16
-        A = torch.nn.functional.pad(A, (0, pad))
-        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
-        K += pad
+    K = _whole_rows(A.shape[2])
     left = _cat_k(A)  # (M, n*K): limb j at columns [j*K, (j+1)*K)
     right = _right_rev(B)  # (N, n*K): limb i at columns [(n-1-i)*K, (n-i)*K)
     out = torch.zeros(out_shape, dtype=torch.float64, device=A.device)

@@ -78,8 +78,8 @@ def product_digits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Digit s is sum_j a[j] @ b[s - j], computed as ONE float64 matmul of the
     pairs' limbs laid side by side along K.  Every partial sum is an integer
     below 2^31, far under 2^53, so the float64 product is exact in any
-    order, on the CPU and on CUDA.  (``torch._int_mm``, an int8 GEMM on
-    both, would give the same digits; ops/extprec.py uses it.)
+    order, on the CPU and on CUDA.  (An int8 GEMM would give the same
+    digits: ops/extprec.py::int_mm, the hand-written kernel on the card.)
     """
     L, M, K = a.shape
     N = b.shape[2]

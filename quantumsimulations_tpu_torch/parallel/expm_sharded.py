@@ -28,9 +28,10 @@ The operator's rows are built from its COO triplet at and above
 ``dynamics/expm_propagator._EXT_CHUNK_DIM`` (the same values as the dense
 matrix, without a dim^2 host buffer; e0 and the norm estimate from the
 sparse matrix), and from the dense matrix below it, as the JAX package
-builds them.  The limb products are the port's plain ``torch._int_mm``
-int8 GEMMs (ops/extprec.py); the JAX package runs them in plain ``jnp``
-too, outside any Pallas kernel.
+builds them.  The limb products are the port's int8 GEMMs
+(ops/extprec.py::int_mm: the hand-written Hopper kernel
+``csrc/int8_gemm.cu`` on the card, ``torch._int_mm`` on the CPU); the JAX
+package runs them in plain ``jnp``, outside any Pallas kernel.
 
 Replaces the reference's single-process ``qt.sesolve``
 (dipolar_ensemble_with_rare.py:653) for bath sizes no single device holds.

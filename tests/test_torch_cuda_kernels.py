@@ -16,7 +16,9 @@ are exact in any order and under any split of K; two calls are also equal
 to each other); the extp Chebyshev stepper against the f64 one,
 1e-11 (the JAX package's bar, tests/test_limb_kernels.py:161);
 ext_obs_diagonals_int8 against its plain version and the ext limb product
-(int8 GEMMs through cuBLASLt) against the CPU, equal bit for bit; the ext
+(int8 GEMMs through the hand-written kernel) against the CPU, equal bit
+for bit; int8_gemm against torch._int_mm, equal bit for bit (int32 sums are
+exact in any order and under any split of K; two calls equal); the ext
 route's rows on the card against the CPU, 1e-13 (equal limbs, the float64
 observable combine summed in another order); z_expectations_f32 against its
 plain version, 1e-5 of the output's largest magnitude (both sum the same
@@ -52,6 +54,7 @@ from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.ops import cmatmul as cm
 from quantumsimulations_tpu_torch.ops import ext_obs as eo
 from quantumsimulations_tpu_torch.ops import extprec as ep
+from quantumsimulations_tpu_torch.ops import int8_gemm as ig
 from quantumsimulations_tpu_torch.ops import limb_kernels as lk
 from quantumsimulations_tpu_torch.ops import zexp
 
@@ -347,6 +350,134 @@ def test_ext_cmatmul_on_card_equals_cpu(cuda_device, M, K, N, panel):
     got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops], panel=panel)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# The int8 GEMM (csrc/int8_gemm.cu) against torch._int_mm, bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _i8(shape, gen, device, lo=-66, hi=66):
+    return torch.randint(lo, hi + 1, shape, generator=gen, device=device,
+                         dtype=torch.int32).to(torch.int8)
+
+
+def _ext_gemm_operands(M, N, kl, L, j0, j1, gen, device):
+    """The ext chain's GEMM operands: A the K slice [j0 kl, j1 kl) of an
+    (M, L kl) limb stack, B the transpose of the same slice of a
+    K-contiguous (N, L kl) copy."""
+    a = _i8((M, L * kl), gen, device, -33, 33)[:, j0 * kl:j1 * kl]
+    b = _i8((N, L * kl), gen, device, -33, 33)[:, j0 * kl:j1 * kl].t()
+    return a, b
+
+
+def _int_mm_ref(a, b, device):
+    """torch._int_mm on contiguous copies on ``device``, zero-padded to its
+    shapes (cuBLASLt refuses some small padded shapes; the CPU takes all)."""
+    return ig.int8_gemm_plain(a.to(device).contiguous(), b.to(device).contiguous())
+
+
+def _assert_gemm_equal(a, b, ref_device="cuda"):
+    before = launch_counts["int8_gemm"]
+    got = ig.int8_gemm(a, b)
+    assert launch_counts["int8_gemm"] == before + 1
+    assert torch.equal(got.to(ref_device), _int_mm_ref(a, b, ref_device))
+    return got
+
+
+@pytest.mark.parametrize("j0,j1", [(0, 1), (0, 15), (3, 9), (13, 15)])
+def test_int8_gemm_main_path_views_equal_int_mm(cuda_device, j0, j1):
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + j0 * 16 + j1)
+    _assert_gemm_equal(*_ext_gemm_operands(8192, 512, 8192, 15, j0, j1, gen, cuda_device))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 32, 64, 128, 256])
+def test_int8_gemm_doubling_shapes_equal_int_mm(cuda_device, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + n)
+    _assert_gemm_equal(*_ext_gemm_operands(8192, n, 8192, 15, 0, 3, gen, cuda_device))
+
+
+@pytest.mark.parametrize("n", [8192, 128])
+def test_int8_gemm_ozaki_shapes_equal_int_mm(cuda_device, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(300 + n)
+    _assert_gemm_equal(*_ext_gemm_operands(8192, n, 8192, 11, 0, 11, gen, cuda_device))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 16, 1), (5, 37, 3), (16, 200, 13), (17, 1000, 9),
+                                   (300, 129, 70), (129, 4097, 257), (8, 15, 130)])
+def test_int8_gemm_ragged_shapes_equal_int_mm(cuda_device, m, k, n):
+    """Ragged M < 17, N % 8 != 0, K % 16 != 0: views of 16-byte aligned
+    buffers, against torch._int_mm on the CPU."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+    width = -(-k // 16) * 16 + 32
+    a = _i8((m, width), gen, cuda_device)[:, :k]
+    b = _i8((n, width), gen, cuda_device)[:, :k].t()
+    _assert_gemm_equal(a, b, ref_device="cpu")
+
+
+@pytest.mark.parametrize("m,n", [(256, 512), (8192, 8)])
+def test_int8_gemm_extreme_limbs_at_the_headroom(cuda_device, m, n):
+    """Every limb at +-66 (the Karatsuba sums' range) over the longest K the
+    ext chain's headroom allows (15 limb pairs of 8192)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n)
+    k = 15 * 8192
+    a = (torch.randint(0, 2, (m, k), generator=gen, device=cuda_device) * 132 - 66).to(torch.int8)
+    b = (torch.randint(0, 2, (n, k), generator=gen, device=cuda_device) * 132 - 66).to(torch.int8)
+    assert k * 66 * 66 < 2**31
+    _assert_gemm_equal(a, b.t())
+
+
+def test_int8_gemm_two_calls_equal_one_launch_each(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for n in (8, 256, 512):  # narrow and wide split K across blocks, wide at N 512 does not
+        a, b = _ext_gemm_operands(8192, n, 8192, 15, 2, 7, gen, cuda_device)
+        before = launch_counts["int8_gemm"]
+        first, second = ig.int8_gemm(a, b), ig.int8_gemm(a, b)
+        assert launch_counts["int8_gemm"] == before + 2
+        assert torch.equal(first, second)
+
+
+def test_int8_gemm_cuda_tensors_never_reach_torch_int_mm(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch._int_mm called with CUDA tensors")
+
+    gen = torch.Generator().manual_seed(11)
+    ops = [_ext_limbs(s, gen, "cpu") for s in ((15, 64, 64), (15, 64, 64), (15, 64, 24), (15, 64, 24))]
+    want = ep.ext_cmatmul(*ops)
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_int8_gemm_wrapper_raises_on_other_layouts(cuda_device):
+    a = torch.zeros((64, 64), dtype=torch.int8, device=cuda_device)
+    before = launch_counts["int8_gemm"]
+    with pytest.raises(ValueError, match="K-contiguous"):
+        ig.int8_gemm(a, torch.zeros((64, 32), dtype=torch.int8, device=cuda_device))
+    with pytest.raises(ValueError, match="16-byte"):
+        ig.int8_gemm(torch.zeros((64, 40), dtype=torch.int8, device=cuda_device),
+                     torch.zeros((32, 48), dtype=torch.int8, device=cuda_device)[:, :40].t())
+    with pytest.raises(ValueError, match="one device"):
+        ig.int8_gemm(a, torch.zeros((32, 64), dtype=torch.int8).t())
+    assert launch_counts["int8_gemm"] == before
+
+
+def test_int8_gemm_variant_counters_sum_to_calls(cuda_device):
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
+
+    gen = torch.Generator().manual_seed(12)
+    a = [_ext_limbs((15, 128, 128), gen, "cpu").to(cuda_device) for _ in range(2)]
+    s = [_ext_limbs((15, 128, n), gen, "cpu").to(cuda_device) for n in (4, 4, 96, 96)]
+    timer = StageTimer()
+    before = launch_counts["int8_gemm"]
+    with tracing(timer), timer.stage("doubling"):
+        ep.ext_cmatmul(a[0], a[1], s[0], s[1])  # narrow
+        ep.ext_cmatmul(a[0], a[1], s[2], s[3])  # wide
+    c = timer.counters["doubling"]
+    assert c["int8_gemm.narrow"] == c["int8_gemm.wide"] == 51
+    assert c["int8_gemm.narrow"] + c["int8_gemm.wide"] == c["int8_gemm.calls"]
+    assert launch_counts["int8_gemm"] - before == c["int8_gemm.calls"]
 
 
 def test_ext_route_on_card_equals_cpu(cuda_device):
