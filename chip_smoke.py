@@ -22,8 +22,10 @@ Phases, each printing one line as it finishes:
      without the carry; a float64 matmul of the same shape), the eager
      call's time and the plain version's;
   5. ext_obs_diagonals_int8 against its plain version, bit for bit, at two
-     ragged small shapes, at (15, 8192, 1024) and at the n12 advance's shape
-     (15, 8192, 20480), on random canonical limbs with limb 0 at its full
+     ragged small shapes, at (15, 8192, 1024), at the n12 advance's shape
+     (15, 8192, 20480), and on its dim-16384 path (a column in two blocks of
+     a cluster) at a ragged (15, 16384, 1000) and at the n13 advance's shape
+     (15, 16384, 20480), on random canonical limbs with limb 0 at its full
      range, with device times per call (CUDA-graph replay) of the kernel and
      of its earlier SIMT design (experiments/torch_ext_obs_simt.cu, built
      beside the kernels, timed in turns with it), the eager call's time, the
@@ -427,10 +429,14 @@ LIMB_SHAPES = {
 LIMB_PER_APPLY = {"HL": 1, "cross stage 1": 2, "cross stage 2": 2, "R": 1}
 
 #: ext_obs_diagonals_int8 shapes (L, dim, T): ragged small ones (staged a
-#: byte at a time; dim 16 below one 128-row tile), a (dim 8192) check, and
-#: the n12 advance's one launch (40 blocks of 512 columns); the last one is
-#: the main path's, reported in the kernels line
-EXT_OBS_SHAPES = ((15, 16, 33), (15, 64, 200), (15, 8192, 1024), (15, 8192, 40 * 512))
+#: byte at a time; dim 16 below one 128-row tile), a (dim 8192) check, the
+#: n12 advance's one launch (40 blocks of 512 columns), and the dim-16384
+#: path at a ragged T and at the n13 advance's one launch; the two launches
+#: are the main paths', reported in the kernels line (rows 3 and 3b)
+EXT_OBS_PATH = (15, 8192, 40 * 512)
+EXT_OBS_PATH_16384 = (15, 16384, 40 * 512)
+EXT_OBS_SHAPES = ((15, 16, 33), (15, 64, 200), (15, 8192, 1024), EXT_OBS_PATH,
+                  (15, 16384, 1000), EXT_OBS_PATH_16384)
 #: the SIMT design kernel 3 had before its tensor-core redesign, built beside
 #: the port's kernels and timed in phase 5 against the current one
 EXT_OBS_SIMT_SRC = os.path.join("experiments", "torch_ext_obs_simt.cu")
@@ -1834,8 +1840,9 @@ def ext_seed_rows(model, T: int, dev) -> tuple[np.ndarray, float]:
 
     from quantumsimulations_tpu_torch.dynamics.expm_propagator import (
         _ext_host_setup,
-        _ext_preamble,
+        _ext_powers,
         _ext_split_operator,
+        _ext_taylor,
     )
     from quantumsimulations_tpu_torch.dynamics.observables import assembled_rows
     from quantumsimulations_tpu_torch.ops.extprec import ext_val
@@ -1844,8 +1851,10 @@ def ext_seed_rows(model, T: int, dev) -> tuple[np.ndarray, float]:
     H, dim = model.hamiltonian, model.hamiltonian.dim
     _, n_sq, dt_s, op = _ext_host_setup(H, np.asarray(model.psi0), N12_DT, dim, dev)
     Are, Aim = _ext_split_operator(op, dt_s, dim, dev)
-    S_re, S_im, _, _ = _ext_preamble(Are, Aim, np.asarray(model.psi0), n_sq,
-                                     T.bit_length() - 1, 512, lambda name: contextlib.nullcontext())
+    stage = lambda name: contextlib.nullcontext()  # noqa: E731
+    U = list(_ext_taylor(Are, Aim, 512, stage))
+    del Are, Aim
+    S_re, S_im, _, _ = _ext_powers(U, np.asarray(model.psi0), n_sq, T.bit_length() - 1, 512, stage)
     sea_mask = torch.as_tensor((np.arange(len(model.dims)) < model.n_sea_effective)
                                .astype(np.float64), device=dev)
     rows = assembled_rows(torch.complex(ext_val(S_re), ext_val(S_im)), model.dims, sea_mask,
@@ -2123,8 +2132,12 @@ def main() -> int:
     obs = {}
     simt, simt_s = simt_build.result()
     say(f"      built {EXT_OBS_SIMT_SRC} (kernel 3's SIMT design, for phase 5) in {simt_s:.2f} s")
+    launches_16384 = 0  # the dim-16384 path's launches in this phase
     for i, shape in enumerate(EXT_OBS_SHAPES):
+        before = launch_counts["ext_obs_diagonals_int8"]
         r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
+        if shape[1] == 16384:
+            launches_16384 += launch_counts["ext_obs_diagonals_int8"] - before
         say(f"[5/20] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
             f"call: kernel {r['ms']:.4f}, SIMT design {r['simt_ms']:.4f} (same call, in turns: "
             f"{r['ms_turns']}, {r['simt_ms_turns']}); eager call {r['call_ms']:.4f} ms, plain "
@@ -2134,7 +2147,7 @@ def main() -> int:
             f"of it; the same operations on the int32 CUDA cores {r['int32_cuda_core_ms']:.4f} ms, "
             f"at the __dp4a rate {r['dp4a_ms']:.4f} ms (the JAX cost estimate counts "
             f"{r['cost_estimate_gop']:.1f} G)")
-    at_path = obs[EXT_OBS_SHAPES[-1]]
+    at_path, at_16384 = obs[EXT_OBS_PATH], obs[EXT_OBS_PATH_16384]
     side.shutdown()
 
     zexp = {}
@@ -2438,7 +2451,7 @@ def main() -> int:
             "source": "quantumsimulations_tpu_torch/csrc/ext_obs_diagonals.cu",
             "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:200",
             "launches": n12["launches"]["ext_obs_diagonals_int8"],
-            "max_abs_err": max(r["max_abs_err"] for r in obs.values()),
+            "max_abs_err": max(r["max_abs_err"] for k, r in obs.items() if k[1] <= 8192),
             "ms": at_path["ms"],
             "kernel_ms": at_path["ms"],
             "plain_ms": at_path["plain_ms"],
@@ -2456,8 +2469,33 @@ def main() -> int:
                           "int8_tensor_cores": at_path["int8_tensor_core_ms"],
                           "int32_cuda_cores": at_path["int32_cuda_core_ms"],
                           "dp4a": at_path["dp4a_ms"]},
-            "shapes": {str(k): v for k, v in obs.items()},
+            "shapes": {str(k): v for k, v in obs.items() if k[1] <= 8192},
             "n12": n12,
+        },
+        {
+            "name": "ext_obs_diagonals_int8 (dim 16384)",
+            "route": "cuda",
+            "source": "quantumsimulations_tpu_torch/csrc/ext_obs_diagonals.cu",
+            "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:200",
+            "launches": launches_16384,
+            "unit": "the launches of phase 5 at dim 16384 (the smoke runs no n13 ext evolution; "
+                    "the route launches the path once per n13 evolution)",
+            "max_abs_err": max(r["max_abs_err"] for k, r in obs.items() if k[1] == 16384),
+            "ms": at_16384["ms"],
+            "kernel_ms": at_16384["ms"],
+            "plain_ms": at_16384["plain_ms"],
+            "bound_ms": at_16384["bound_ms"],
+            "bound_by": at_16384["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the per-site limb-pair sums",
+            "timing": "as the row above",
+            "call_ms": at_16384["call_ms"],
+            "simt_ms": at_16384["simt_ms"],
+            "bounds_ms": {"bytes_at_hbm": at_16384["bytes_ms"],
+                          "int8_tensor_cores": at_16384["int8_tensor_core_ms"],
+                          "int32_cuda_cores": at_16384["int32_cuda_core_ms"],
+                          "dp4a": at_16384["dp4a_ms"]},
+            "shapes": {str(k): v for k, v in obs.items() if k[1] == 16384},
         },
         {
             "name": "z_expectations_f32",

@@ -1,12 +1,13 @@
-"""Device time of one n12 ext evolution by the program span that launched
-it, on the card, and what the program's tracing costs.
+"""Device time of one ext evolution by the program span that launched it,
+on the card, and what the program's tracing costs.
 
-Runs the work of the benchmark cell ``bath-n12.ext`` (its configuration and
-traffic under ``portbench/``, the seed's first detuning): a warm-up
-evolution; one evolution through ``simulate_rare(timer=)`` under
-``torch.profiler`` with CUDA activity only, as the benchmark's traced run;
-then evolutions without a timer and with one (no profiler) in turns.
-Prints, and writes as JSON to ``--out`` where given:
+Runs the work of a benchmark cell (``--workload``, default ``bath-n12.ext``:
+its configuration and traffic under ``portbench/``, the seed's first
+detuning): a warm-up evolution; one evolution through
+``simulate_rare(timer=)`` under ``torch.profiler`` with CUDA activity only,
+as the benchmark's traced run, its timer keeping each stage's device-memory
+high water; then evolutions without a timer and with one (no profiler) in
+turns.  Prints, and writes as JSON to ``--out`` where given:
 
   * the device seconds and intervals by launching program span
     (``portbench/launches.py``), the unattributed seconds and their share of
@@ -16,11 +17,16 @@ Prints, and writes as JSON to ``--out`` where given:
     (``int8_gemm.wide``, ``int8_gemm.narrow``);
   * ``int8_gemm_s``, ``int8_gemm_roofline``, ``limb_elementwise_s`` and
     ``model_build_s`` as PERF.md's list of layers defines them;
+  * the observables kernel's device seconds under the ``ext_obs`` span, the
+    program's ``ext_obs.columns`` and ``ext_obs.bytes``, and its roofline
+    (those bytes over the card's HBM rate, over its seconds);
+  * each stage's ``memory.peak_bytes`` and the evolution's largest;
   * the sum check: ``int8_gemm_s`` + ``limb_elementwise_s`` + the card's idle
     seconds inside the chain and advance stages against those stages' seconds;
   * the walls of the untimed and the timed evolutions.
 
-    python3 experiments/torch_launch_attribution.py [--seed N] [--pairs 2] [--out FILE]
+    python3 experiments/torch_launch_attribution.py [--workload NAME] [--seed N] [--pairs 2]
+        [--out FILE]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -64,6 +70,7 @@ def _covered(union, a, b):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="bath-n12.ext")
     ap.add_argument("--seed", type=int, default=2147920101)
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--out", type=Path, default=None)
@@ -85,7 +92,7 @@ def main(argv=None) -> int:
 
     card = harness.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    cell = harness.load_cell(ROOT, "bath-n12.ext")
+    cell = harness.load_cell(ROOT, args.workload)
     params, tr = cell.config["params"], cell.traffic
     order = gen.detuning_order(cell.config, args.seed)
     record = gen.timed_record(params, order, 0)
@@ -99,7 +106,7 @@ def main(argv=None) -> int:
 
     evolve(gen.warmup_record(params, tr))
 
-    timer = StageTimer(device=torch.device("cuda"))
+    timer = StageTimer(device=torch.device("cuda"), memory=True)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     prof.start()
     w0 = time.time_ns()
@@ -143,6 +150,10 @@ def main(argv=None) -> int:
     variants = {v: sum(c.get(f"int8_gemm.{v}", 0) for c in timer.counters.values())
                 for v in ("wide", "narrow")}
     peaks = counts.card_peaks(torch.cuda.get_device_name(0))
+    obs_s = by_span.get("ext_obs", {}).get("seconds", 0.0)
+    obs_bytes = sum(c.get("ext_obs.bytes", 0) for c in timer.counters.values())
+    stage_peaks = {str(k): v["memory.peak_bytes"] for k, v in timer.counters.items()
+                   if "memory.peak_bytes" in v}
     dim = int(np.prod(reference.dims_of(record)))
     least = (counts.chain_ops("ext", dim, timer.counts, 1)
              + counts.advance_ops("ext", dim, params["steps"]))
@@ -168,6 +179,13 @@ def main(argv=None) -> int:
         "int8_gemm_roofline": 100.0 * ops / peaks["int8_ops_per_s"] / gemm_s if gemm_s else None,
         "limb_elementwise_s": limb_s,
         "model_build_s": timer.stages.get("build_model"),
+        "ext_obs_s": obs_s,
+        "ext_obs.columns": sum(c.get("ext_obs.columns", 0) for c in timer.counters.values()),
+        "ext_obs.bytes": obs_bytes,
+        "ext_obs_roofline": (100.0 * obs_bytes / peaks["hbm_bytes_per_s"] / obs_s
+                             if obs_s else None),
+        "memory_peak_bytes": stage_peaks,
+        "memory_peak_bytes_max": max(stage_peaks.values(), default=None),
         "sum_check": {"gemm_plus_limb_plus_idle_s": gemm_s + limb_s + idle_s,
                       "idle_in_stages_s": idle_s, "stage_s": stage_s, "stage_span_s": span_s,
                       "rel": (gemm_s + limb_s + idle_s) / stage_s - 1.0},

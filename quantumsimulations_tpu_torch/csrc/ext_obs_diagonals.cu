@@ -83,7 +83,8 @@
 //     max(dim, 64) + 16 bytes after the scratch and the 32 KB staging ring:
 //     218 KB at dim 8192, one block per SM.  The 16-byte pad puts the 8 rows
 //     of every `ldmatrix` matrix in 8 bank groups.  Limb planes >= n_diag and
-//     rows >= dim are zero.  dim <= 8192.
+//     rows >= dim are zero.  So a block holds dim <= 8192 rows; dim 16384
+//     takes two blocks a column (below).
 //   - Measured (experiments/torch_ext_obs_variants.py, H100 SXM at 700 W, at
 //     the path's shape): a block's staging and its mma do not overlap (its
 //     shared memory holds one column); staging alone takes ~4.5 ms, the mma
@@ -96,6 +97,30 @@
 //     first version of the mma loops was bound by issue (a branch per
 //     register in the strides-below-16 partner swap, ~10 instructions an
 //     mma), not by the tensor cores.
+//
+// Dim 16384 (n_sites 14): a column's 23 planes would take 377 KB, past the
+// 227 KB a block may hold, so a column lives in two blocks of one cluster,
+// each holding one 8192-row half (the same 218 KB as at dim 8192).
+//   - Bound.  2 * n_diag * 16384 * T bytes read once: 7.38 GB at the n13
+//     path's (15, 16384, 20480), 2.20 ms at 3.35 TB/s.
+//   - Cluster.  16 blocks hold 8 columns: rank = half * 8 + column.  The
+//     TMA tiles stay 16 columns wide and start on a 16-column boundary (a
+//     box is at least 16 bytes across, and a copy that starts 8 bytes into
+//     a row faults with an illegal instruction); each block's lanes store
+//     the 8 columns the cluster owns and drop the other 8, which the
+//     neighbouring cluster stages (from L2, once the first has brought
+//     them in).  So each limb byte leaves HBM about once and L2 twice.
+//   - Sites 1-13 (strides <= 4096) pair rows inside a half: each block
+//     runs them on its own rows exactly as a dim-8192 column, and its norm.
+//   - Site 0 (stride 8192) pairs row a of half 0 with row a of half 1.
+//     Each block of the pair takes half of those level pairs and reads both
+//     operands from the two blocks' shared memory with plain loads through
+//     distributed shared memory (`ldmatrix` reads only the block's own), in
+//     the fragment layout `ldmatrix` gives, into the same 6 mma per 32.
+//   - The half-1 block adds its sums into the half-0 block's with
+//     distributed shared-memory atomics, and the half-0 block writes the
+//     column.  Exact integer sums, so the order does not matter: the
+//     result equals the plain version bit for bit, as at dim <= 8192.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -108,7 +133,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAX_DIAG = 11;   // the JAX package's _EXT_OBS_Q
-constexpr int MAX_SITES = 13;  // dim <= 8192: one column's limbs fit in shared memory
+constexpr int MAX_SITES = 14;  // dim <= 16384
+constexpr int BLOCK_SITES = 13;  // a block holds <= 8192 rows: above, a column takes two blocks
 constexpr int THREADS = 512;
 constexpr int CS = 16;  // blocks (columns) of a cluster
 constexpr int WARPS = THREADS / 32;
@@ -118,7 +144,8 @@ constexpr int ROW_PAD = 16;
 // shared int scratch: x, y per (site, diagonal), G_aa per (site, diagonal), N
 constexpr int XY_INTS = MAX_SITES * 2 * MAX_DIAG;
 constexpr int GAA_INTS = MAX_SITES * MAX_DIAG;
-constexpr int SCRATCH_BYTES = ((XY_INTS + GAA_INTS + MAX_DIAG) * 4 + 127) / 128 * 128;
+constexpr int SCRATCH_INTS = XY_INTS + GAA_INTS + MAX_DIAG;
+constexpr int SCRATCH_BYTES = (SCRATCH_INTS * 4 + 127) / 128 * 128;
 // staging ring: one tile slot per warp, a tile = 16 columns x BOX rows of one
 // limb plane (BOX = min(dim, MAX_BOX)), then one mbarrier per slot
 constexpr int MAX_BOX = 128;
@@ -126,7 +153,8 @@ constexpr int SLOT_BYTES = 16 * MAX_BOX;
 constexpr int RING_BYTES = WARPS * SLOT_BYTES;
 constexpr int PLANES_OFFSET = SCRATCH_BYTES + RING_BYTES + WARPS * 8;
 
-__host__ __device__ constexpr int plane_stride(int dim) { return (dim > 64 ? dim : 64) + ROW_PAD; }
+// bytes of one plane slot for a block holding `rows` rows of a column
+__host__ __device__ constexpr int plane_stride(int rows) { return (rows > 64 ? rows : 64) + ROW_PAD; }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -161,16 +189,19 @@ struct Lane {
   bool f_hi, hg_hi;  // which 16-row chunk of the block the lane's row reads
 };
 
+// H = R8 R9 R10 I8 I9 I10, then R3 and R7 (rows whose products are dropped);
+// G = R0 R1 R2 R3 I0 I1 I2 I3
+__device__ __forceinline__ int h_slot(int row) {
+  return row < 3 ? 8 + row : row < 6 ? I_SLOT + 5 + row : (row == 6 ? 3 : 7);
+}
+__device__ __forceinline__ int g_slot(int row) { return row < 4 ? row : I_SLOT + row - 4; }
+
 __device__ __forceinline__ Lane lane_rows(int lane, int ps) {
   const int mat = lane >> 3, row = lane & 7;
-  // H = R8 R9 R10 I8 I9 I10, then R3 and R7 (rows whose products are dropped);
-  // G = R0 R1 R2 R3 I0 I1 I2 I3
-  const int h_slot = row < 3 ? 8 + row : row < 6 ? I_SLOT + 5 + row : (row == 6 ? 3 : 7);
-  const int g_slot = row < 4 ? row : I_SLOT + row - 4;
   Lane l;
   l.f = static_cast<uint32_t>(((mat & 1) ? I_SLOT + row : row) * ps);
   l.f_hi = (mat & 2) != 0;
-  l.hg = static_cast<uint32_t>((mat < 2 ? h_slot : g_slot) * ps);
+  l.hg = static_cast<uint32_t>((mat < 2 ? h_slot(row) : g_slot(row)) * ps);
   l.hg_hi = (mat & 1) != 0;
   return l;
 }
@@ -178,6 +209,46 @@ __device__ __forceinline__ Lane lane_rows(int lane, int ps) {
 __device__ __forceinline__ void load_blk(Blk& b, uint32_t base, const Lane& l, int lo, int hi) {
   ldsm_x4(b.f, base + l.f + static_cast<uint32_t>(l.f_hi ? hi : lo));
   ldsm_x4(b.hg, base + l.hg + static_cast<uint32_t>(l.hg_hi ? hi : lo));
+}
+
+// The bytes of a lane's `ldmatrix` fragments (matrix row lane / 4, bytes
+// 4 (lane % 4) .. + 3 of each 16-byte row): slot offsets of R and I limb
+// row, of H row and of G row, plus the lane's 4-byte column.
+struct Frag {
+  uint32_t fr, fi, h, g;
+};
+
+__device__ __forceinline__ Frag frag_rows(int lane, int ps) {
+  const int row = lane >> 2, col = 4 * (lane & 3);
+  return {static_cast<uint32_t>(row * ps + col), static_cast<uint32_t>((I_SLOT + row) * ps + col),
+          static_cast<uint32_t>(h_slot(row) * ps + col), static_cast<uint32_t>(g_slot(row) * ps + col)};
+}
+
+// `base` (a shared::cta address) in the shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t base, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(base), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// load_blk's registers, read with plain loads from the planes at `base` (a
+// shared::cluster address: this block's or another block's of the cluster,
+// where `ldmatrix` cannot reach).
+__device__ __forceinline__ void load_blk_cluster(Blk& b, uint32_t base, const Frag& fr, int lo, int hi) {
+  b.f[0] = ld_cluster(base + fr.fr + lo);
+  b.f[1] = ld_cluster(base + fr.fi + lo);
+  b.f[2] = ld_cluster(base + fr.fr + hi);
+  b.f[3] = ld_cluster(base + fr.fi + hi);
+  b.hg[0] = ld_cluster(base + fr.h + lo);
+  b.hg[1] = ld_cluster(base + fr.h + hi);
+  b.hg[2] = ld_cluster(base + fr.g + lo);
+  b.hg[3] = ld_cluster(base + fr.g + hi);
 }
 
 // P(X) over the block's rows, A = `a` (masked or not), B = `x`: C rows 0-7 are
@@ -336,33 +407,39 @@ __device__ __forceinline__ void tma_tile(uint32_t slot, uint32_t bar, const CUte
 // Accelerator for one tile at a time into the warp's ring slot; when it has
 // landed, lane 4G + Q (G < BOX/16) transposes columns 4Q .. 4Q + 3 of rows
 // 16G .. 16G + 15 in registers (`__byte_perm`) and stores each column's 16
-// bytes into that column's block.
+// bytes into the block that holds that column's rows: rank h * cols + c for
+// column c < cols of the cluster and row half h (`rows` rows a block).  A
+// tile starts on a 16-column boundary (the copy refuses others: an 8-column
+// cluster's tile starts 0 or 8 columns before its first column).
 __device__ __forceinline__ void stage_tma(cg::cluster_group& cluster, unsigned char* planes,
                                           unsigned char* ring, uint64_t* bars,
                                           const CUtensorMap* tm_re, const CUtensorMap* tm_im,
-                                          int dim, int nd, int col0, int rank, int ps, int box) {
+                                          int dim, int rows, int cols, int nd, int col0, int rank,
+                                          int ps, int box) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int boxes = dim / box, tiles = 2 * nd * boxes;
   const unsigned char* slot = ring + warp * SLOT_BYTES;
   const uint32_t slot_s = smem_addr(slot), bar = smem_addr(bars + warp);
   const int G = lane >> 2, Q = lane & 3;
+  const int tile_col = col0 & ~15, off = col0 - tile_col;  // the cluster's columns in the tile
   uint32_t parity = 0;
   for (int it = rank + CS * warp; it < tiles; it += CS * WARPS, parity ^= 1) {
     const int pl = it / boxes, bx = it - pl * boxes;
     if (lane == 0)
-      tma_tile(slot_s, bar, (pl & 1) ? tm_im : tm_re, col0, (pl >> 1) * dim + bx * box, 16 * box);
+      tma_tile(slot_s, bar, (pl & 1) ? tm_im : tm_re, tile_col, (pl >> 1) * dim + bx * box, 16 * box);
     mbar_wait(bar, parity);
-    if (G < box / 16) {
+    if (G < box / 16 && 4 * Q >= off && 4 * Q < off + cols) {
       uint32_t w[16];
 #pragma unroll
       for (int r = 0; r < 16; ++r) w[r] = *reinterpret_cast<const uint32_t*>(slot + (16 * G + r) * 16 + 4 * Q);
       // after this, w[4m + b] holds rows 4m..4m+3 of column 4Q + b
 #pragma unroll
       for (int m = 0; m < 4; ++m) transpose4(w[4 * m], w[4 * m + 1], w[4 * m + 2], w[4 * m + 3]);
-      unsigned char* dst = planes + ((pl & 1) ? I_SLOT + (pl >> 1) : (pl >> 1)) * ps + bx * box + 16 * G;
+      const int r0 = bx * box, h = r0 / rows;
+      unsigned char* dst = planes + ((pl & 1) ? I_SLOT + (pl >> 1) : (pl >> 1)) * ps + (r0 - h * rows) + 16 * G;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        uint4* p = reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, 4 * Q + b));
+        uint4* p = reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, h * cols + 4 * Q - off + b));
         *p = make_uint4(w[b], w[4 + b], w[8 + b], w[12 + b]);
       }
     }
@@ -371,19 +448,20 @@ __device__ __forceinline__ void stage_tma(cg::cluster_group& cluster, unsigned c
 }
 
 __device__ __forceinline__ void stage_bytes(cg::cluster_group& cluster, unsigned char* planes,
-                                            const int8_t* s_re, const int8_t* s_im, int dim, int T,
-                                            int nd, int col0, int rank, int ps) {
-  const size_t total = static_cast<size_t>(2 * nd) * dim * CS;
+                                            const int8_t* s_re, const int8_t* s_im, int dim, int rows,
+                                            int cols, int T, int nd, int col0, int rank, int ps) {
+  const size_t total = static_cast<size_t>(2 * nd) * dim * cols;
   for (size_t f = static_cast<size_t>(rank) * THREADS + threadIdx.x; f < total;
        f += static_cast<size_t>(CS) * THREADS) {
-    const int c = static_cast<int>(f % CS);
-    const size_t rest = f / CS;
+    const int c = static_cast<int>(f % cols);
+    const size_t rest = f / cols;
     const int row = static_cast<int>(rest % dim), pl = static_cast<int>(rest / dim);
-    const int j = pl >> 1;
+    const int j = pl >> 1, h = row / rows;
     const bool im = (pl & 1) != 0;
     const int col = col0 + c;
     const int8_t v = col < T ? (im ? s_im : s_re)[(static_cast<size_t>(j) * dim + row) * T + col] : 0;
-    *cluster.map_shared_rank(planes + (im ? I_SLOT + j : j) * ps + row, c) = static_cast<unsigned char>(v);
+    *cluster.map_shared_rank(planes + (im ? I_SLOT + j : j) * ps + (row - h * rows), h * cols + c) =
+        static_cast<unsigned char>(v);
   }
 }
 
@@ -405,7 +483,8 @@ __device__ __forceinline__ void compact_units(Acc& acc, uint32_t base, const Lan
 // Units of a site: 32 level pairs each.
 __device__ __forceinline__ int site_units(int dim) { return max(1, dim / 64); }
 
-template <bool VEC>
+// SPLIT (dim 16384): a column's rows in two blocks of the cluster (header).
+template <bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 ext_obs_kernel(const int8_t* __restrict__ s_re, const int8_t* __restrict__ s_im,
                const __grid_constant__ CUtensorMap tm_re, const __grid_constant__ CUtensorMap tm_im,
@@ -417,20 +496,23 @@ ext_obs_kernel(const int8_t* __restrict__ s_re, const int8_t* __restrict__ s_im,
   unsigned char* ring = smem + SCRATCH_BYTES;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SCRATCH_BYTES + RING_BYTES);
   unsigned char* planes = smem + PLANES_OFFSET;
-  const int ps = plane_stride(dim);
+  constexpr int COLS = SPLIT ? CS / 2 : CS;  // columns of a cluster
+  const int rows = SPLIT ? dim / 2 : dim;    // rows of a column a block holds
+  const int ps = plane_stride(rows);
   const int tid = threadIdx.x;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int col0 = static_cast<int>(blockIdx.x) / CS * CS;
-  const int t = col0 + rank;
+  const int half = rank / COLS, c = rank - half * COLS;
+  const int col0 = static_cast<int>(blockIdx.x) / CS * COLS;
+  const int t = col0 + c;
 
   // zero what no block of the cluster writes: the scratch, planes of limbs >=
-  // nd and (in 16-byte words) the rows >= dim of the others
+  // nd and (in 16-byte words) the rows >= rows of the others
   for (int i = tid; i < SCRATCH_BYTES / 4; i += THREADS) xy_sm[i] = 0;
   for (int slot = tid >> 5; slot < SLOTS; slot += WARPS) {
     const int j = slot < I_SLOT ? slot : slot - I_SLOT;
     uint4* row = reinterpret_cast<uint4*>(planes + slot * ps);
-    for (int w = (j >= nd || dim < 16 ? 0 : dim / 16) + (tid & 31); w < ps / 16; w += 32)
+    for (int w = (j >= nd || rows < 16 ? 0 : rows / 16) + (tid & 31); w < ps / 16; w += 32)
       row[w] = make_uint4(0, 0, 0, 0);
   }
   if (VEC && tid < WARPS) {
@@ -438,59 +520,89 @@ ext_obs_kernel(const int8_t* __restrict__ s_re, const int8_t* __restrict__ s_im,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster.sync();  // every block runs, and its zeros are in, before the cluster writes
-  if constexpr (VEC) stage_tma(cluster, planes, ring, bars, &tm_re, &tm_im, dim, nd, col0, rank, ps, box);
-  else stage_bytes(cluster, planes, s_re, s_im, dim, T, nd, col0, rank, ps);
+  if constexpr (VEC)
+    stage_tma(cluster, planes, ring, bars, &tm_re, &tm_im, dim, rows, COLS, nd, col0, rank, ps, box);
+  else stage_bytes(cluster, planes, s_re, s_im, dim, rows, COLS, T, nd, col0, rank, ps);
   cluster.sync();  // the cluster's rows are in every block's shared memory
-  if (t >= T) return;
+  // a SPLIT block past T still meets its cluster at the syncs below
+  if (!SPLIT && t >= T) return;
 
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  const Lane ln = lane_rows(lane, ps);
-  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(planes));
+  if (t < T) {
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+    const Lane ln = lane_rows(lane, ps);
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(planes));
 
-  const int uk = site_units(dim), total = n_sites * uk;
-  const int u_begin = warp * total / WARPS, u_end = (warp + 1) * total / WARPS;
-  int first = 0;
-  for (int k = 0; k < n_sites; ++k) {
-    const int sh = n_sites - 1 - k, dr = 1 << sh;
-    const int lo = max(u_begin, first) - first, hi = min(u_end, first + uk) - first;
-    first += uk;
-    if (lo >= hi) continue;
-    Acc acc;
-    zero(acc.c1); zero(acc.c2); zero(acc.c3a); zero(acc.c3b); zero(acc.gr); zero(acc.gi);
-    switch (dr) {
-      case 1: compact_units<1>(acc, base, ln, lo, hi, lane, g); break;
-      case 2: compact_units<2>(acc, base, ln, lo, hi, lane, g); break;
-      case 4: compact_units<4>(acc, base, ln, lo, hi, lane, g); break;
-      case 8: compact_units<8>(acc, base, ln, lo, hi, lane, g); break;
-      default:
-        // 32 level pairs: level-0 rows p = 32u .. 32u + 31 in two 16-row chunks
+    const int uk = site_units(rows), total = n_sites * uk;
+    const int u_begin = warp * total / WARPS, u_end = (warp + 1) * total / WARPS;
+    int first = 0;
+    for (int k = 0; k < n_sites; ++k) {
+      const int sh = n_sites - 1 - k, dr = 1 << sh;
+      const int lo = max(u_begin, first) - first, hi = min(u_end, first + uk) - first;
+      first += uk;
+      if (lo >= hi) continue;
+      Acc acc;
+      zero(acc.c1); zero(acc.c2); zero(acc.c3a); zero(acc.c3b); zero(acc.gr); zero(acc.gi);
+      if (SPLIT && k == 0) {
+        // site 0 pairs row a of half 0 with row a of half 1: this block takes
+        // the level pairs 32 (u + half uk) .. + 31, both operands from the
+        // pair's shared memory
+        const Frag fr = frag_rows(lane, ps);
+        const uint32_t a_base = map_rank(base, c), b_base = map_rank(base, COLS + c);
         for (int u = lo; u < hi; ++u) {
-          const int p0 = 32 * u, p1 = p0 + 16;
-          const int a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1));
-          const int a1 = ((p1 >> sh) << (sh + 1)) | (p1 & (dr - 1));
+          const int p0 = 32 * (u + half * uk), p1 = p0 + 16;
           Blk a, b;
-          load_blk(a, base, ln, a0, a1);
-          load_blk(b, base, ln, a0 + dr, a1 + dr);
+          load_blk_cluster(a, a_base, fr, p0, p1);
+          load_blk_cluster(b, b_base, fr, p0, p1);
           cross_grams(acc, a, b);
           self_gram(acc.gr, acc.gi, a, a, g);
         }
+      } else {
+        switch (dr) {
+          case 1: compact_units<1>(acc, base, ln, lo, hi, lane, g); break;
+          case 2: compact_units<2>(acc, base, ln, lo, hi, lane, g); break;
+          case 4: compact_units<4>(acc, base, ln, lo, hi, lane, g); break;
+          case 8: compact_units<8>(acc, base, ln, lo, hi, lane, g); break;
+          default:
+            // 32 level pairs: level-0 rows p = 32u .. 32u + 31 in two 16-row chunks
+            for (int u = lo; u < hi; ++u) {
+              const int p0 = 32 * u, p1 = p0 + 16;
+              const int a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1));
+              const int a1 = ((p1 >> sh) << (sh + 1)) | (p1 & (dr - 1));
+              Blk a, b;
+              load_blk(a, base, ln, a0, a1);
+              load_blk(b, base, ln, a0 + dr, a1 + dr);
+              cross_grams(acc, a, b);
+              self_gram(acc.gr, acc.gi, a, a, g);
+            }
+        }
+      }
+      flush_site(acc, xy_sm + k * 2 * MAX_DIAG, xy_sm + k * 2 * MAX_DIAG + MAX_DIAG,
+                 gaa_sm + k * MAX_DIAG, nd, g, tq);
     }
-    flush_site(acc, xy_sm + k * 2 * MAX_DIAG, xy_sm + k * 2 * MAX_DIAG + MAX_DIAG,
-               gaa_sm + k * MAX_DIAG, nd, g, tq);
-  }
-  {  // the norm's self-Gram over all rows, 32 at a time
-    const int nb = max(1, dim / 32);
-    int cr[4], ci[4];
-    zero(cr);
-    zero(ci);
-    for (int u = warp * nb / WARPS; u < (warp + 1) * nb / WARPS; ++u) {
-      Blk x;
-      load_blk(x, base, ln, 32 * u, 32 * u + 16);
-      self_gram(cr, ci, x, x, g);
+    {  // the norm's self-Gram over the block's rows, 32 at a time
+      const int nb = max(1, rows / 32);
+      int cr[4], ci[4];
+      zero(cr);
+      zero(ci);
+      for (int u = warp * nb / WARPS; u < (warp + 1) * nb / WARPS; ++u) {
+        Blk x;
+        load_blk(x, base, ln, 32 * u, 32 * u + 16);
+        self_gram(cr, ci, x, x, g);
+      }
+      flush_sym(cr, ci, n_sm, nd, g, tq);
     }
-    flush_sym(cr, ci, n_sm, nd, g, tq);
   }
-  __syncthreads();
+  if constexpr (SPLIT) {
+    cluster.sync();  // every sum is in, and no block reads another's planes any more
+    if (half == 1 && t < T) {  // the half-1 block's sums into its partner's
+      for (int i = tid; i < SCRATCH_INTS; i += THREADS)
+        if (xy_sm[i] != 0) atomicAdd(cluster.map_shared_rank(xy_sm + i, c), xy_sm[i]);
+    }
+    cluster.sync();
+    if (half == 1 || t >= T) return;
+  } else {
+    __syncthreads();
+  }
 
   for (int i = tid; i < nd * R; i += THREADS) {
     const int s = i / R, row = i - s * R;
@@ -529,11 +641,12 @@ cudaError_t tensor_map(CUtensorMap* m, const int8_t* p, int rows, int T, int box
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool VEC>
+template <bool VEC, bool SPLIT>
 cudaError_t launch(const int8_t* s_re, const int8_t* s_im, int32_t* out, int limbs, int dim, int T,
                    int n_sites, int R, int nd, cudaStream_t st) {
-  auto kernel = ext_obs_kernel<VEC>;
-  const int smem = PLANES_OFFSET + SLOTS * plane_stride(dim);
+  auto kernel = ext_obs_kernel<VEC, SPLIT>;
+  const int cols = SPLIT ? CS / 2 : CS;
+  const int smem = PLANES_OFFSET + SLOTS * plane_stride(SPLIT ? dim / 2 : dim);
   const int box = dim < MAX_BOX ? dim : MAX_BOX;
   CUtensorMap tm_re = {}, tm_im = {};
   if (VEC) {
@@ -546,7 +659,7 @@ cudaError_t launch(const int8_t* s_re, const int8_t* s_im, int32_t* out, int lim
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS * ((T + CS - 1) / CS));
+  cfg.gridDim = dim3(CS * ((T + cols - 1) / cols));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -564,7 +677,7 @@ cudaError_t launch(const int8_t* s_re, const int8_t* s_im, int32_t* out, int lim
 }  // namespace
 
 // C interface for ctypes.  s_re, s_im: (L, dim, T) contiguous int8 with
-// dim = 2^n_sites <= 8192 and L >= n_diag; out: (n_diag, R, T) contiguous
+// dim = 2^n_sites <= 16384 and L >= n_diag; out: (n_diag, R, T) contiguous
 // int32 with R >= 3*n_sites + 1, fully written.  Launches on `stream` and
 // returns the launch's CUDA error code (0 = ok).
 extern "C" int qst_ext_obs_diagonals(const int8_t* s_re, const int8_t* s_im, int32_t* out,
@@ -577,8 +690,13 @@ extern "C" int qst_ext_obs_diagonals(const int8_t* s_re, const int8_t* s_im, int
   const bool vec = T % 16 == 0 && dim >= 16 &&
                    reinterpret_cast<uintptr_t>(s_re) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(s_im) % 16 == 0;
-  const cudaError_t e = vec ? launch<true>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st)
-                            : launch<false>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st);
+  const bool split = n_sites > BLOCK_SITES;
+  cudaError_t e;
+  if (split)
+    e = vec ? launch<true, true>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st)
+            : launch<false, true>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st);
+  else
+    e = vec ? launch<true, false>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st)
+            : launch<false, false>(s_re, s_im, out, limbs, dim, T, n_sites, R, n_diag, st);
   return static_cast<int>(e);
 }
-

@@ -1,5 +1,7 @@
 """Dense step-operator propagators: the "expm" routes and the exact-limb
-"ext" route (2048 < dim <= 8192).
+"ext" route (``auto`` takes it for 2048 < dim <= 8192; asked for by name it
+runs up to dim 16384, the largest dim its fused observables and one card's
+memory hold).
 
 Port of ``quantumsimulations_tpu/dynamics/expm_propagator.py``: the
 float64 ``expm`` route (:func:`build_step_operator`,
@@ -251,22 +253,14 @@ def _ext_split_operator(op, dt_s: float, dim: int, device) -> tuple[torch.Tensor
             ext_split_upload(-data.real * dt_s, device=device))
 
 
-def _ext_preamble(Are, Aim, psi0: np.ndarray, n_sq: int, log2_block: int, panel: int, stage):
-    """(S_re, S_im, B_re, B_im): the (L, dim, block) seed-state limb stacks
-    and B = U^block, from the limb stacks of A (steps 3-5 of the module
-    docstring).  The same math in the same order as the JAX package's
+def _ext_taylor(Are, Aim, panel: int, stage):
+    """Step 3: U = I + D, D = Taylor(exp(A) - I), from the limb stacks of A.
+    The last use of A: a caller that drops its own references to A after
+    this frees 2 L dim^2 bytes for the squarings.  With :func:`_ext_powers`
+    the same math in the same order as the JAX package's
     ``_ext_expm_program`` and ``_ext_preamble_chunked``."""
-    from ..ops.extprec import (
-        ext_add_identity,
-        ext_cmatmul,
-        ext_horner_step,
-        ext_left,
-        ext_split_upload,
-        taylor_coeff_limbs,
-    )
+    from ..ops.extprec import ext_add_identity, ext_horner_step, ext_left, taylor_coeff_limbs
 
-    dev = Are.device
-    L, dim = Are.shape[0], Are.shape[1]
     # one stage call per full (dim)^3 product: the calls count the products
     left = ext_left(Are, Aim)
     coeffs = taylor_coeff_limbs(_EXT_DEGREE)
@@ -275,8 +269,20 @@ def _ext_preamble(Are, Aim, psi0: np.ndarray, n_sq: int, log2_block: int, panel:
         with stage("horner"):
             D_re, D_im = ext_horner_step(left, Are, Aim, D_re, D_im, coeffs[k], panel)
     del left
-    U_re, U_im = ext_add_identity(D_re), D_im
-    del D_re, D_im
+    return ext_add_identity(D_re), D_im
+
+
+def _ext_powers(U: list, psi0: np.ndarray, n_sq: int, log2_block: int, panel: int, stage):
+    """Steps 4-5: n_sq squarings of U = [U_re, U_im], then the doubling
+    passes; returns the (L, dim, block) seed-state limb stacks S_re, S_im
+    and B = U^block as B_re, B_im.  The list is emptied, so the first
+    squaring frees the U it was given."""
+    from ..ops.extprec import ext_cmatmul, ext_left, ext_split_upload
+
+    U_re, U_im = U
+    U.clear()
+    dev = U_re.device
+    L, dim = U_re.shape[0], U_re.shape[1]
     for _ in range(n_sq):
         with stage("squarings"):
             U_re, U_im = ext_cmatmul(U_re, U_im, U_re, U_im, panel=panel)
@@ -318,9 +324,12 @@ def expm_traces_assembled_ext(
     ``fused_obs`` (default: all local dims 2 and block % 128 == 0, as the
     JAX package picks it) takes the observables from the hand-written
     kernel over each advance chunk's stacked states; otherwise from
-    :func:`_ext_site_obs` per block.  The kernel holds dim <= 8192 (the
-    "auto" range of the route); above it fused observables raise at once,
-    on every device.  With ``ckpt_dir`` set, the advance
+    :func:`_ext_site_obs` per block.  The kernel holds dim <= 16384 (a
+    column in one block's shared memory up to 8192, in two blocks of a
+    cluster at 16384), and the route's largest stacks fit one 80 GB card
+    there; above it fused observables raise at once, on every device.
+    "auto" takes the route only up to dim 8192 and ``cheb_step`` above, as
+    the JAX package does.  With ``ckpt_dir`` set, the advance
     snapshots its exact int8 limb state and the rows computed so far every
     ``ckpt_every_blocks`` blocks (dynamics/checkpoint.py, the JAX package's
     file format and fingerprint), and a rerun with the same arguments
@@ -348,9 +357,10 @@ def expm_traces_assembled_ext(
     if fused_obs and dim > 1 << KERNEL_MAX_SITES:
         # checked before the step-operator build, which takes minutes there
         raise ValueError(
-            f"the ext route's fused observables hold one column's limbs in the card's shared "
-            f"memory: dim <= {1 << KERNEL_MAX_SITES} (got dim={dim}); above it \"auto\" takes "
-            f"\"cheb_step\", or pass fused_obs=False"
+            f"the ext route's fused observables hold one column's limbs in the shared memory "
+            f"of one block or of a two-block cluster: dim <= {1 << KERNEL_MAX_SITES} (got "
+            f"dim={dim}); take \"cheb_step\" there (\"auto\" does above dim 8192), or pass "
+            f"fused_obs=False"
         )
     adv_chunk = min(_EXT_ADV_CHUNK, n_blocks)
     if ckpt_dir:
@@ -365,8 +375,9 @@ def expm_traces_assembled_ext(
     with stage("split"):
         Are, Aim = _ext_split_operator(op, dt_s, dim, dev)
         del op
-    S_re, S_im, B_re, B_im = _ext_preamble(Are, Aim, psi0, n_sq, log2_block, pan, stage)
-    del Are, Aim
+    U = list(_ext_taylor(Are, Aim, pan, stage))
+    del Are, Aim  # A's last use: 2 L dim^2 bytes freed before the squarings
+    S_re, S_im, B_re, B_im = _ext_powers(U, psi0, n_sq, log2_block, pan, stage)
 
     flats: list[np.ndarray] = []
     done = 0

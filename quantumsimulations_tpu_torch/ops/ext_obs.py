@@ -21,15 +21,21 @@ in any order under the headroom assert, so the kernel, the plain version and
 the Pallas kernel agree bit for bit.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/ext_obs_diagonals.cu`` (int8 tensor-core Grams, one column per block;
-its header gives the design and the bound); on a CPU tensor it runs
+``csrc/ext_obs_diagonals.cu`` (int8 tensor-core Grams, one column per block
+up to dim 8192, one column per two blocks of a cluster at dim 16384; its
+header gives the design and the bound); on a CPU tensor it runs
 :func:`ext_obs_diagonals_plain`.  A CUDA tensor never takes the plain
 version: the kernel launches or the wrapper raises.  The CUDA kernel is
 compiled for the full triangle of pairs (every (j, s - j) with s < n_diag,
 the tables ``_ext_obs_pairs`` builds), in any order, with n_diag <= 11,
-L >= n_diag and dim <= 8192 (a block holds one column's limbs in shared
-memory; the ext route's dims); the wrapper raises for other tables and
-larger dims.
+L >= n_diag and dim <= 16384 (a column's limbs in the shared memory of one
+block, or of two: the ext route's dims); the wrapper raises for other
+tables and larger dims.
+
+Under an active tracer (``utils/profiling.py``) each call is a launch span
+``ext_obs`` and the innermost open stage counts ``ext_obs.columns`` (T) and
+``ext_obs.bytes``, the least HBM bytes of the call: the n_diag limb planes
+of both stacks read once, the (n_diag, R, T) int32 sums written once.
 
 Parameters kept for call-site compatibility with the JAX package:
 ``t_tile`` (a no-op: the CUDA kernel masks a ragged T, so T need not be a
@@ -44,13 +50,14 @@ import ctypes
 import torch
 
 from ..kernels import launch_counts
+from ..utils.profiling import count, launch_span
 
 #: largest n_diag the CUDA kernel is compiled for (the JAX package's _EXT_OBS_Q)
 KERNEL_MAX_DIAG = 11
-#: largest n_sites of the CUDA kernel: a block holds one column's limbs in
-#: shared memory, 23 planes of dim + 16 bytes (189 KB at dim 8192, the ext
-#: route's largest)
-KERNEL_MAX_SITES = 13
+#: largest n_sites of the CUDA kernel: a block holds 23 planes of up to 8192
+#: rows + 16 bytes (189 KB) of a column, so a dim-16384 column takes two
+#: blocks of a cluster, and no dim above fits
+KERNEL_MAX_SITES = 14
 #: columns per chunk of the plain version
 _PLAIN_COLS = 2048
 
@@ -171,6 +178,15 @@ def ext_obs_diagonals_int8(
     be 2 (n_sites = log2(dim)).  Combine outside with weights 2^(-5 s).
     ``t_tile`` and ``interpret`` are accepted no-ops (module docstring)."""
     L, dim, T, n_sites, R = _check(S_re, S_im, jj, ii, n_diag)
+    with launch_span("ext_obs"):
+        out = _dispatch(S_re, S_im, jj, ii, n_diag, L, dim, T, n_sites, R)
+    count("ext_obs.columns", T)
+    count("ext_obs.bytes", 2 * n_diag * dim * T + 4 * n_diag * R * T)
+    return out
+
+
+def _dispatch(S_re, S_im, jj, ii, n_diag: int, L: int, dim: int, T: int, n_sites: int,
+              R: int) -> torch.Tensor:
     if S_re.device.type == "cpu":
         return ext_obs_diagonals_plain(S_re, S_im, jj, ii, n_diag)
     if S_re.device.type != "cuda":
@@ -182,7 +198,7 @@ def ext_obs_diagonals_int8(
         )
     if n_sites > KERNEL_MAX_SITES:
         raise ValueError(
-            f"the CUDA obs kernel holds one column's limbs in shared memory: dim <= "
-            f"{1 << KERNEL_MAX_SITES} (got dim={dim})"
+            f"the CUDA obs kernel holds one column's limbs in the shared memory of one block "
+            f"or of two: dim <= {1 << KERNEL_MAX_SITES} (got dim={dim})"
         )
     return _launch(S_re, S_im, n_diag, L, dim, T, n_sites, R)

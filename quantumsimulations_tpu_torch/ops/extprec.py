@@ -54,8 +54,13 @@ EXT_GUARD = 2  # extra product diagonals computed below the last kept limb
 # grid-aligned limbs land exactly on grid positions (s = j + i).
 EXT_E = 5
 #: columns of the flattened stack per float64 product in
-#: :func:`_ext_scalar_mul_traced` (1 GB of float64 transient at L = 15)
+#: :func:`_scalar_digits` (1 GB of float64 transient at L = 15)
 _SCALAR_CHUNK = 1 << 23
+#: columns of the flattened stack per int32 digit block of
+#: :func:`ext_axpy_traced`: one (dim, dim) plane at dim 8192, so a dim-16384
+#: stack carries in four blocks (~6 GB of transients, not ~25).  Every
+#: column carries on its own, so the blocks change no bit.
+_CARRY_CHUNK = 1 << 26
 
 
 def _ext_w(j: int) -> float:
@@ -164,15 +169,10 @@ def ext_scalar_mul(a: torch.Tensor, c_limbs) -> torch.Tensor:
     return _ext_carry(d)[:L]
 
 
-def _ext_scalar_mul_traced(a: torch.Tensor, cl) -> torch.Tensor:
-    """ext * scalar with the scalar's limbs ``cl`` given as data (the Taylor
-    1/k of the Horner loop): digits in int32, the shift carry.
-
-    Digit m is sum_i a[m - 1 - i] * cl[i], a short convolution along the
-    limb axis; it runs as one float64 matmul with a banded (L + G, L) matrix
-    of the scalar's limbs.  Every partial sum is an integer below 2^14, so
-    the float64 product is exact and equals the JAX package's int32 sum."""
-    L = a.shape[0]
+def _scalar_band(cl, L: int, device) -> torch.Tensor:
+    """The banded (L + G, L) float64 matrix of the scalar's limbs ``cl``:
+    digit m of ext * scalar is sum_i a[m - 1 - i] * cl[i], a short
+    convolution along the limb axis, so one matmul with this band."""
     cl = np.asarray(cl, dtype=np.float64)
     band = np.zeros((L + EXT_GUARD, L))
     for m in range(L + EXT_GUARD):
@@ -180,13 +180,38 @@ def _ext_scalar_mul_traced(a: torch.Tensor, cl) -> torch.Tensor:
             j = m - 1 - i
             if 0 <= j < L:
                 band[m, j] = cl[i]
-    C = torch.as_tensor(band, device=a.device)
-    flat = a.reshape(L, -1)
-    d = torch.empty((L + EXT_GUARD, flat.shape[1]), dtype=torch.int32, device=a.device)
-    for c0 in range(0, flat.shape[1], _SCALAR_CHUNK):  # bounds the float64 transient
+    return torch.as_tensor(band, device=device)
+
+
+def _scalar_digits(C: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """(L + G, n) int32 digits C @ flat of an (L, n) limb block, one float64
+    product per :data:`_SCALAR_CHUNK` columns (bounds the float64 transient).
+    Every partial sum is an integer below 2^14, so the float64 product is
+    exact and equals the JAX package's int32 sum."""
+    d = torch.empty((C.shape[0], flat.shape[1]), dtype=torch.int32, device=flat.device)
+    for c0 in range(0, flat.shape[1], _SCALAR_CHUNK):
         c1 = c0 + _SCALAR_CHUNK
         d[:, c0:c1] = C @ flat[:, c0:c1].to(torch.float64)
-    return carry_digits(d.reshape((L + EXT_GUARD,) + tuple(a.shape[1:])), 5, L)
+    return d
+
+
+def ext_axpy_traced(a: torch.Tensor, p: torch.Tensor, cl) -> torch.Tensor:
+    """The Horner step's a + p * c, the scalar c given by its limbs ``cl`` as
+    data (the Taylor 1/k): the JAX package's
+    ``ext_add(a, _ext_scalar_mul_traced(p, cl))`` bit for bit.  It runs in
+    blocks of :data:`_CARRY_CHUNK` columns: each block's digits (one float64
+    matmul with :func:`_scalar_band`), shift carry, sum and second carry
+    before the next block, so neither the scaled stack nor a whole stack of
+    int32 digits is ever held."""
+    L = a.shape[0]
+    C = _scalar_band(cl, L, p.device)
+    fa, fp = a.reshape(L, -1), p.reshape(L, -1)
+    out = torch.empty(fa.shape, dtype=torch.int8, device=a.device)
+    for c0 in range(0, fa.shape[1], _CARRY_CHUNK):
+        c1 = c0 + _CARRY_CHUNK
+        scaled = carry_digits(_scalar_digits(C, fp[:, c0:c1]), 5, L)
+        out[:, c0:c1] = _ext_carry_i32(fa[:, c0:c1].to(torch.int32).add_(scaled))
+    return out.reshape(a.shape)
 
 
 def _ext_pairs(L: int) -> tuple[np.ndarray, np.ndarray]:
@@ -372,10 +397,12 @@ def ext_taylor_horner(
 
 def ext_horner_step(left: ExtLeft, are, aim, d_re, d_im, cl, panel: int = 512):
     """One Horner step D <- A + (A @ D) * c, the scalar c given by its limbs
-    ``cl`` and A both as limb stacks and as its prepared left operand."""
+    ``cl`` and A both as limb stacks and as its prepared left operand.  The
+    real plane's product is freed before the imaginary one is scaled."""
     p_re, p_im = ext_cmatmul(left, None, d_re, d_im, panel=panel)
-    return (ext_add(are, _ext_scalar_mul_traced(p_re, cl)),
-            ext_add(aim, _ext_scalar_mul_traced(p_im, cl)))
+    n_re = ext_axpy_traced(are, p_re, cl)
+    del p_re
+    return n_re, ext_axpy_traced(aim, p_im, cl)
 
 
 def taylor_coeff_limbs(degree: int, Lc: int = EXT_LIMBS) -> np.ndarray:

@@ -306,8 +306,7 @@ def expm_traces_sharded_ext(
     from ..dynamics.krylov import spectral_norm_bound
     from ..ops.extprec import (
         EXT_LIMBS,
-        _ext_scalar_mul_traced,
-        ext_add,
+        ext_axpy_traced,
         ext_left,
         ext_split_host,
         ext_val,
@@ -343,8 +342,8 @@ def expm_traces_sharded_ext(
     u_re, u_im = a_re, a_im
     for k in range(_EXT_DEGREE, 1, -1):
         t_re, t_im = _ext_sharded_cmatmul(left_a, u_re, u_im, group, panel, dim)
-        u_re = ext_add(a_re, _ext_scalar_mul_traced(t_re, coeffs[k]))
-        u_im = ext_add(a_im, _ext_scalar_mul_traced(t_im, coeffs[k]))
+        u_re = ext_axpy_traced(a_re, t_re, coeffs[k])
+        u_im = ext_axpy_traced(a_im, t_im, coeffs[k])
     del left_a, a
     # U = I + D: 1.0 sits exactly on limb 0 at this rank's row offset
     u_re[0].diagonal(offset=rows.start).add_(1)

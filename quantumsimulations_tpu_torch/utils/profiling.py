@@ -17,6 +17,13 @@ the module-level :func:`launch_span` and :func:`count` each cost one global
 read and record nothing.  A launch span does not synchronise: its host interval is
 only the enqueue of the work inside it, and it serves to attribute the
 kernels launched there (a profiler pairs each kernel with its launch call).
+A timer made with ``memory=True`` on a CUDA device also keeps each stage's
+device-memory high water, ``memory.peak_bytes`` in ``counters[stage]`` (the
+largest over the stage's calls): the CUDA caching allocator's peak is reset
+at the stage's start and read at its end.  That reset is process-wide, so it
+is off by default: a caller that reads ``torch.cuda.max_memory_allocated``
+itself (a benchmark's peak) would read only what came after the last stage
+began.
 
   * :func:`fetch_sync` — wait until the work producing a tensor is done: a
     device synchronise of the tensor's CUDA device (the JAX package fetches
@@ -84,6 +91,8 @@ class StageTimer:
     ``counters[stage][name]`` (module docstring)."""
 
     device: torch.device | None = None
+    #: keep each stage's device-memory high water (module docstring)
+    memory: bool = False
     stages: dict[str, float] = field(default_factory=dict)
     counts: dict[str, int] = field(default_factory=dict)
     spans: list[Span] = field(default_factory=list, repr=False)
@@ -92,10 +101,20 @@ class StageTimer:
     evolutions: int = 0
     _open: list[int] = field(default_factory=list, repr=False)  # indices into spans
     _open_stages: list[str] = field(default_factory=list, repr=False)
+    _open_peaks: list[int] = field(default_factory=list, repr=False)
+
+    def _cuda(self) -> bool:
+        return self.device is not None and torch.device(self.device).type == "cuda"
 
     def _sync(self) -> None:
-        if self.device is not None and torch.device(self.device).type == "cuda":
+        if self._cuda():
             torch.cuda.synchronize(self.device)
+
+    def _fold_peak(self) -> None:
+        """Fold the allocator's peak since its last reset into every open
+        stage's high water."""
+        peak = int(torch.cuda.max_memory_allocated(self.device))
+        self._open_peaks[:] = [max(p, peak) for p in self._open_peaks]
 
     @contextlib.contextmanager
     def _span(self, name: str):
@@ -113,8 +132,13 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str):
         self._sync()
+        memory = self.memory and self._cuda()
+        if memory:
+            self._fold_peak()
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
         self._open_stages.append(name)
+        self._open_peaks.append(0)
         try:
             with self._span(name):
                 try:
@@ -122,7 +146,13 @@ class StageTimer:
                 finally:
                     self._sync()
         finally:
+            if memory:
+                self._fold_peak()
+            peak = self._open_peaks.pop()
             self._open_stages.pop()
+            if memory:
+                c = self.counters.setdefault(name, {})
+                c["memory.peak_bytes"] = max(c.get("memory.peak_bytes", 0), peak)
             dt = time.perf_counter() - t0
             self.stages[name] = self.stages.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1

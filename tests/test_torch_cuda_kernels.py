@@ -265,12 +265,15 @@ def _ext_pairs(nd):
     return tuple(zip(*[(j, s - j) for s in range(nd) for j in range(s + 1)]))
 
 
-# (L, dim, T, n_diag, every limb at +-33): n_sites 1-13 at a narrow T (33:
+# (L, dim, T, n_diag, every limb at +-33): n_sites 1-14 at a narrow T (33:
 # staged a byte at a time; 32: staged by the TMA), T 1, 33, 130 and 2049,
-# n_diag < 11 with L = n_diag, and limbs at the headroom's worst case
+# n_diag < 11 with L = n_diag, and limbs at the headroom's worst case; at
+# n_sites 14 (a column in two blocks) ragged T of 1, 9 and 130 too
 _EXT_CASES = (
-    [(15, 1 << n, 33, 11, False) for n in range(1, 14)]
-    + [(15, 1 << n, 32, 11, False) for n in range(1, 14)]
+    [(15, 1 << n, 33, 11, False) for n in range(1, 15)]
+    + [(15, 1 << n, 32, 11, False) for n in range(1, 15)]
+    + [(15, 1 << 14, T, 11, False) for T in (1, 9, 130)]
+    + [(11, 1 << 14, 48, 11, False), (7, 1 << 14, 40, 7, False), (15, 1 << 14, 64, 11, True)]
     + [(15, 2048, T, 11, False) for T in (1, 33, 130, 2049)]
     + [(15, 64, 200, 11, False), (15, 256, 384, 11, False), (11, 32, 1, 11, False)]
     + [(nd, 1 << n, 48, nd, False) for nd, n in ((1, 5), (4, 9), (7, 12), (10, 13))]
@@ -316,9 +319,10 @@ def test_ext_obs_kernel_counts_one_launch_per_call(cuda_device):
 
 
 def test_ext_obs_kernel_rejects_dims_above_8192(cuda_device):
-    S = torch.zeros((11, 1 << 14, 2), dtype=torch.int8, device=cuda_device)
+    # dim 16384 runs (two blocks a column); 32768 is past the kernel
+    S = torch.zeros((11, 1 << 15, 2), dtype=torch.int8, device=cuda_device)
     before = launch_counts["ext_obs_diagonals_int8"]
-    with pytest.raises(ValueError, match="dim <= 8192"):
+    with pytest.raises(ValueError, match="dim <= 16384"):
         eo.ext_obs_diagonals_int8(S, S, JJ, II, 11)
     assert launch_counts["ext_obs_diagonals_int8"] == before
 
@@ -478,6 +482,27 @@ def test_int8_gemm_variant_counters_sum_to_calls(cuda_device):
     assert c["int8_gemm.narrow"] == c["int8_gemm.wide"] == 51
     assert c["int8_gemm.narrow"] + c["int8_gemm.wide"] == c["int8_gemm.calls"]
     assert launch_counts["int8_gemm"] - before == c["int8_gemm.calls"]
+
+
+def test_stage_memory_high_water_on_card(cuda_device):
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer(device=torch.device(cuda_device), memory=True)
+    with timer.stage("outer"):
+        with timer.stage("big"):
+            x = torch.empty(64 << 20, dtype=torch.int8, device=cuda_device)
+            del x
+        with timer.stage("small"):
+            y = torch.empty(1 << 20, dtype=torch.int8, device=cuda_device)
+            del y
+    big = timer.counters["big"]["memory.peak_bytes"]
+    assert big >= 64 << 20
+    assert timer.counters["small"]["memory.peak_bytes"] < big
+    assert timer.counters["outer"]["memory.peak_bytes"] >= big  # the inner reset is folded in
+    plain = StageTimer(device=torch.device(cuda_device))
+    with plain.stage("big"):
+        pass
+    assert "big" not in plain.counters  # off unless asked for
 
 
 def test_ext_route_on_card_equals_cpu(cuda_device):

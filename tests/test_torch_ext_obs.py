@@ -122,14 +122,19 @@ def test_site_obs_matches_reference(dims):
 KERNEL_WARPS = 16
 
 
+#: the most sites whose column one CUDA block holds (BLOCK_SITES in the
+#: kernel); above it a column's rows are split over two blocks of a cluster
+KERNEL_BLOCK_SITES = 13
+
+
 @dataclass(frozen=True)
 class ObsUnit:
     """One unit of the CUDA kernel's work on a column: 32 level pairs of
-    ``site``.  For a stride dr >= 16, level-0 rows in two 16-row chunks at
-    ``a_lo`` and ``a_hi`` and their partners at ``b_lo``, ``b_hi`` (= + dr);
-    for dr < 16 (``b_lo`` is None), the two 32-row blocks at ``a_lo`` and
-    ``a_hi`` (= a_lo + 32), whose level-0 bytes and partners' the kernel
-    compacts into A and B."""
+    ``site``, rows given as rows of the whole column.  For a stride dr >=
+    16, level-0 rows in two 16-row chunks at ``a_lo`` and ``a_hi`` and
+    their partners at ``b_lo``, ``b_hi`` (= + dr); for dr < 16 (``b_lo`` is
+    None), the two 32-row blocks at ``a_lo`` and ``a_hi`` (= a_lo + 32),
+    whose level-0 bytes and partners' the kernel compacts into A and B."""
 
     site: int
     dr: int
@@ -140,78 +145,113 @@ class ObsUnit:
 
 
 def ext_obs_plan(n_sites: int) -> dict:
-    """The CUDA kernel's work plan for one column, as each block computes
-    it: max(1, dim / 64) units (:class:`ObsUnit`) per site, in site order,
-    each warp a contiguous share of them, and each warp a share of the
-    norm's 32-row blocks (rows 32 q .. 32 q + 31, q < max(1, dim / 32)).
-    Positions at and above dim read the kernel's zero padding (a plane holds
-    max(dim, 64) + 16 bytes)."""
+    """The CUDA kernel's work plan for one column.  Up to KERNEL_BLOCK_SITES
+    sites one block holds the column (``rows`` = dim); above, two blocks of
+    a cluster hold a half each (``rows`` = dim / 2, block h rows h * rows ..).
+    Each block runs max(1, rows / 64) units (:class:`ObsUnit`) per site, in
+    site order, each warp a contiguous share of them, and each warp a share
+    of the norm's 32-row blocks of the block's rows (q < max(1, rows / 32)).
+    In a split column sites >= 1 pair rows inside each half, and site 0
+    pairs row a of half 0 with row a of half 1: block h takes its level
+    pairs 32 (u + h uk) .., reading both halves.  Positions at and above dim
+    read the kernel's zero padding (a plane holds max(rows, 64) + 16
+    bytes)."""
     dim = 1 << n_sites
-    per_site = max(1, dim // 64)
-    units = []
-    for k in range(n_sites):
-        sh = n_sites - 1 - k
-        dr = 1 << sh
-        for u in range(per_site):
-            if dr >= 16:
-                p0, p1 = 32 * u, 32 * u + 16
-                a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1))
-                a1 = ((p1 >> sh) << (sh + 1)) | (p1 & (dr - 1))
-                units.append(ObsUnit(k, dr, a0, a1, a0 + dr, a1 + dr))
-            else:
-                units.append(ObsUnit(k, dr, 64 * u, 64 * u + 32, None, None))
-    n_units, n_blocks, w = len(units), max(1, dim // 32), KERNEL_WARPS
+    split = n_sites > KERNEL_BLOCK_SITES
+    n_blocks = 2 if split else 1
+    rows = dim // n_blocks
+    per_site = max(1, rows // 64)
+    blocks = []
+    for h in range(n_blocks):
+        r0, units = h * rows, []
+        for k in range(n_sites):
+            sh = n_sites - 1 - k
+            dr = 1 << sh
+            for u in range(per_site):
+                if split and k == 0:
+                    p0 = 32 * (u + h * per_site)
+                    units.append(ObsUnit(k, dr, p0, p0 + 16, p0 + dr, p0 + 16 + dr))
+                elif dr >= 16:
+                    p0, p1 = 32 * u, 32 * u + 16
+                    a0 = r0 + (((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1)))
+                    a1 = r0 + (((p1 >> sh) << (sh + 1)) | (p1 & (dr - 1)))
+                    units.append(ObsUnit(k, dr, a0, a1, a0 + dr, a1 + dr))
+                else:
+                    units.append(ObsUnit(k, dr, r0 + 64 * u, r0 + 64 * u + 32, None, None))
+        n_units, nb, w = len(units), max(1, rows // 32), KERNEL_WARPS
+        blocks.append({
+            "row0": r0,
+            "units": units,
+            "warp_units": [(i * n_units // w, (i + 1) * n_units // w) for i in range(w)],
+            "norm_blocks": [(i * nb // w, (i + 1) * nb // w) for i in range(w)],
+        })
     return {
         "dim": dim,
-        "plane_bytes": max(dim, 64) + 16,
-        "units": units,
-        "warp_units": [(i * n_units // w, (i + 1) * n_units // w) for i in range(w)],
-        "norm_blocks": [(i * n_blocks // w, (i + 1) * n_blocks // w) for i in range(w)],
+        "rows": rows,
+        "plane_bytes": max(rows, 64) + 16,
+        # rows of the whole column every read lies in (padding included)
+        "column_bytes": dim if split else max(dim, 64) + 16,
+        "blocks": blocks,
+        "units": [u for blk in blocks for u in blk["units"]],
     }
+
+
+def _block_of(plan, r):
+    """(block, row in its planes) of column row ``r``."""
+    h = min(r // plan["rows"], len(plan["blocks"]) - 1)
+    return h, r - h * plan["rows"]
 
 
 @pytest.mark.parametrize("n_sites", list(range(1, tobs.KERNEL_MAX_SITES + 1)))
 def test_kernel_plan_visits_every_level_pair_and_norm_row_once(n_sites):
     plan = ext_obs_plan(n_sites)
     dim, top = plan["dim"], plan["plane_bytes"]
+    assert len(plan["blocks"]) == (2 if n_sites > KERNEL_BLOCK_SITES else 1)
     for k in range(n_sites):
         dr = 1 << (n_sites - 1 - k)
         seen = np.zeros(dim, dtype=np.int64)
-        for u in (u for u in plan["units"] if u.site == k):
-            assert u.dr == dr
-            if u.b_lo is not None:  # chunk pairs: level-0 chunks and their partners
-                assert dr >= 16 and u.b_lo == u.a_lo + dr and u.b_hi == u.a_hi + dr
-                a = np.r_[u.a_lo:u.a_lo + 16, u.a_hi:u.a_hi + 16]
-                assert (a + dr).max() < top  # reads stay inside the padded plane
-            else:  # two 32-row blocks, pairs inside each 16-byte row
-                assert dr < 16 and u.a_hi == u.a_lo + 32 and u.a_lo % 64 == 0
-                blk = np.arange(u.a_lo, u.a_lo + 64)
-                a = blk[(blk & dr) == 0]
-                assert blk.max() < top
-            real = a[a < dim]
-            assert np.all((real & dr) == 0)  # level-0 rows only; partner = a + dr
-            assert np.all(a[a >= dim] + dr >= dim)  # padding pairs with padding
-            np.add.at(seen, real, 1)
+        for h, blk_plan in enumerate(plan["blocks"]):
+            for u in (u for u in blk_plan["units"] if u.site == k):
+                assert u.dr == dr
+                if u.b_lo is not None:  # chunk pairs: level-0 chunks and their partners
+                    assert dr >= 16 and u.b_lo == u.a_lo + dr and u.b_hi == u.a_hi + dr
+                    a = np.r_[u.a_lo:u.a_lo + 16, u.a_hi:u.a_hi + 16]
+                    reads = np.r_[a, a + dr]
+                else:  # two 32-row blocks, pairs inside each 16-byte row
+                    assert dr < 16 and u.a_hi == u.a_lo + 32 and u.a_lo % 64 == 0
+                    reads = np.arange(u.a_lo, u.a_lo + 64)
+                    a = reads[(reads & dr) == 0]
+                # every read lies in one block's padded plane; a block reads
+                # another's only for site 0 of a split column
+                where = [_block_of(plan, int(r)) for r in reads]
+                assert all(0 <= lr < top for _, lr in where)
+                if not (len(plan["blocks"]) == 2 and k == 0):
+                    assert {b for b, _ in where} == {h}
+                real = a[a < dim]
+                assert np.all((real & dr) == 0)  # level-0 rows only; partner = a + dr
+                assert np.all(a[a >= dim] + dr >= dim)  # padding pairs with padding
+                np.add.at(seen, real, 1)
         level0 = (np.arange(dim) & dr) == 0
         np.testing.assert_array_equal(seen, level0.astype(np.int64))
     rows = np.zeros(dim, dtype=np.int64)
-    for lo, hi in plan["norm_blocks"]:
-        for q in range(lo, hi):
-            r = np.arange(32 * q, 32 * q + 32)
-            np.add.at(rows, r[r < dim], 1)
+    for blk_plan in plan["blocks"]:
+        for lo, hi in blk_plan["norm_blocks"]:
+            for q in range(lo, hi):
+                r = blk_plan["row0"] + np.arange(32 * q, 32 * q + 32)
+                np.add.at(rows, r[r < dim], 1)
     np.testing.assert_array_equal(rows, 1)
 
 
-@pytest.mark.parametrize("n_sites", [1, 5, 9, 13])
+@pytest.mark.parametrize("n_sites", [1, 5, 9, 13, 14])
 def test_kernel_plan_splits_units_evenly_over_warps(n_sites):
-    plan = ext_obs_plan(n_sites)
-    ranges, n_units = plan["warp_units"], len(plan["units"])
-    assert len(ranges) == KERNEL_WARPS and ranges[0][0] == 0 and ranges[-1][1] == n_units
-    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    sizes = [hi - lo for lo, hi in ranges]
-    assert max(sizes) - min(sizes) <= 1
-    sites = [{u.site for u in plan["units"][lo:hi]} for lo, hi in ranges]
-    assert max(len(s) for s in sites) <= 3  # a warp reduces into at most three sites
+    for blk_plan in ext_obs_plan(n_sites)["blocks"]:
+        ranges, n_units = blk_plan["warp_units"], len(blk_plan["units"])
+        assert len(ranges) == KERNEL_WARPS and ranges[0][0] == 0 and ranges[-1][1] == n_units
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        sizes = [hi - lo for lo, hi in ranges]
+        assert max(sizes) - min(sizes) <= 1
+        sites = [{u.site for u in blk_plan["units"][lo:hi]} for lo, hi in ranges]
+        assert max(len(s) for s in sites) <= 3  # a warp reduces into at most three sites
 
 
 def test_kernel_plan_mirror_restates_the_kernel_source():
@@ -219,16 +259,24 @@ def test_kernel_plan_mirror_restates_the_kernel_source():
     src = (Path(tobs.__file__).parent.parent / "csrc" / "ext_obs_diagonals.cu").read_text()
     for line in (f"constexpr int THREADS = {32 * KERNEL_WARPS};",
                  "constexpr int WARPS = THREADS / 32;",
+                 f"constexpr int MAX_SITES = {tobs.KERNEL_MAX_SITES};",
+                 f"constexpr int BLOCK_SITES = {KERNEL_BLOCK_SITES};",
+                 "const bool split = n_sites > BLOCK_SITES;",
+                 "const int rows = SPLIT ? dim / 2 : dim;",
+                 "const int half = rank / COLS, c = rank - half * COLS;",
                  "int site_units(int dim) { return max(1, dim / 64); }",
+                 "const int uk = site_units(rows), total = n_sites * uk;",
                  "const int u_begin = warp * total / WARPS, u_end = (warp + 1) * total / WARPS;",
-                 "const int nb = max(1, dim / 32);",
+                 "const int nb = max(1, rows / 32);",
                  "for (int u = warp * nb / WARPS; u < (warp + 1) * nb / WARPS; ++u) {",
                  "const int p0 = 32 * u, p1 = p0 + 16;",
                  "const int a0 = ((p0 >> sh) << (sh + 1)) | (p0 & (dr - 1));",
                  "load_blk(b, base, ln, a0 + dr, a1 + dr);",
+                 "const int p0 = 32 * (u + half * uk), p1 = p0 + 16;",
+                 "const uint32_t a_base = map_rank(base, c), b_base = map_rank(base, COLS + c);",
                  "load_blk(x, base, ln, 64 * u, 64 * u + 16);",
                  "load_blk(y, base, ln, 64 * u + 32, 64 * u + 48);",
-                 "return (dim > 64 ? dim : 64) + ROW_PAD; }",
+                 "return (rows > 64 ? rows : 64) + ROW_PAD; }",
                  "constexpr int ROW_PAD = 16;"):
         assert line in src, line
 
@@ -239,8 +287,9 @@ _G_ROWS = [("R", j) for j in range(4)] + [("I", j) for j in range(4)]
 
 
 def _emulate_kernel_column(R, I, n_sites, nd):
-    """One column's (nd, 3 n + 1) sums as the CUDA kernel forms them: R, I
-    are (11, plane_bytes) int64 planes (zero at limbs >= nd and rows >= dim)."""
+    """One column's (nd, 3 n + 1) sums as the CUDA kernel forms them, the
+    blocks of a split column added together: R, I are (11, column_bytes)
+    int64 planes of the whole column (zero at limbs >= nd and rows >= dim)."""
     plan = ext_obs_plan(n_sites)
 
     def blk(lo, hi):
@@ -298,10 +347,12 @@ def _emulate_kernel_column(R, I, n_sites, nd):
                     else:
                         ys[u.site, s] += c3[m, col] if b_im else -c3[m, col]
         add_sym(self_gram(a, x), gaa[u.site])
-    for lo, hi in plan["norm_blocks"]:
-        for q in range(lo, hi):
-            x = blk(32 * q, 32 * q + 16)
-            add_sym(self_gram(x, x), norm)
+    for blk_plan in plan["blocks"]:
+        for lo, hi in blk_plan["norm_blocks"]:
+            for q in range(lo, hi):
+                r = blk_plan["row0"] + 32 * q
+                x = blk(r, r + 16)
+                add_sym(self_gram(x, x), norm)
     rows = np.zeros((nd, 3 * n_sites + 1), np.int64)
     rows[:, 0:3 * n_sites:3], rows[:, 1:3 * n_sites:3] = xs.T, ys.T
     rows[:, 2:3 * n_sites:3] = (2 * gaa - norm[None, :]).T
@@ -310,7 +361,8 @@ def _emulate_kernel_column(R, I, n_sites, nd):
 
 
 @pytest.mark.parametrize("L,dim,T,nd", [(15, 2, 3, 11), (15, 16, 5, 11), (11, 64, 3, 11),
-                                        (7, 128, 2, 7), (15, 256, 2, 11), (15, 32, 4, 4)])
+                                        (7, 128, 2, 7), (15, 256, 2, 11), (15, 32, 4, 4),
+                                        (15, 16384, 1, 11)])
 def test_kernel_gram_decomposition_equals_plain(L, dim, T, nd):
     rng = np.random.default_rng(dim + T + nd)
     x = rng.integers(-16, 17, (2, L, dim, T))
@@ -320,7 +372,7 @@ def test_kernel_gram_decomposition_equals_plain(L, dim, T, nd):
     jj, ii = zip(*[(j, s - j) for s in range(nd) for j in range(s + 1)])
     want = tobs.ext_obs_diagonals_plain(S_re, S_im, jj, ii, nd).numpy()
     n = dim.bit_length() - 1
-    top = ext_obs_plan(n)["plane_bytes"]
+    top = ext_obs_plan(n)["column_bytes"]
     for t in range(T):
         R, I = (np.zeros((11, top), np.int64) for _ in range(2))
         R[:nd, :dim], I[:nd, :dim] = x[0, :nd, :, t], x[1, :nd, :, t]

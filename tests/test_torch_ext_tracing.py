@@ -2,7 +2,9 @@
 
 Under an active tracer every ``ops/extprec.py::int_mm`` is a launch span
 ``int8_gemm`` and adds ``int8_gemm.calls`` and ``int8_gemm.ops`` (2 M K N of
-the padded operands) to the innermost open stage.  The counts here are made
+the padded operands) to the innermost open stage; every call of the
+observables kernel's wrapper is a launch span ``ext_obs`` and adds
+``ext_obs.columns`` and ``ext_obs.bytes`` (its least HBM bytes).  The counts here are made
 from the routes' product schedules and the padding rule, independently of the
 code that counts; the rows must not depend on whether a timer is given.
 """
@@ -51,7 +53,7 @@ def _ext_product(acc, stage, m, k, n, panel):
                 _add(acc, stage, _gemm(m, pairs * k, w))
 
 
-def _ext_schedule(dim, n_sq, block, T, panel=512):
+def _ext_schedule(dim, n_sq, block, T, panel=512, fused=False):
     acc = {}
     pan = min(panel, dim)
     for _ in range(tep._EXT_DEGREE - 1):
@@ -65,6 +67,11 @@ def _ext_schedule(dim, n_sq, block, T, panel=512):
     chunk = min(tep._EXT_ADV_CHUNK, n_blocks)
     for _ in range(-(-n_blocks // chunk) * chunk):
         _ext_product(acc, "advance", dim, dim, block, block)
+    if fused:  # one kernel call per advance chunk over its stacked columns
+        rows = -(-(3 * (dim.bit_length() - 1) + 1) // 8) * 8
+        cols = -(-n_blocks // chunk) * chunk * block
+        acc["obs"] = {"ext_obs.columns": cols,
+                      "ext_obs.bytes": (2 * 11 * dim + 4 * 11 * rows) * cols}
     return acc
 
 
@@ -106,16 +113,19 @@ def test_ext_gemm_counters_match_the_padded_shapes(n4, block, fused):
     plain = tep.expm_traces_assembled_ext(*_args(n4, TIMES), block=block, fused_obs=fused,
                                           device="cpu")
     np.testing.assert_array_equal(got, plain)
-    want = _ext_schedule(32, timer.counts["squarings"], block, len(TIMES))
+    want = _ext_schedule(32, timer.counts["squarings"], block, len(TIMES), fused=fused)
     assert timer.counters == want
-    n_gemms = sum(c["int8_gemm.calls"] for c in want.values())
+    n_gemms = sum(c.get("int8_gemm.calls", 0) for c in want.values())
     gemms = [s for s in timer.spans if s.name == "int8_gemm"]
     assert len(gemms) == n_gemms
     # each GEMM's parent is the stage that counted it
     by_stage = {}
     for s in gemms:
         by_stage[timer.spans[s.parent].name] = by_stage.get(timer.spans[s.parent].name, 0) + 1
-    assert by_stage == {k: v["int8_gemm.calls"] for k, v in want.items()}
+    assert by_stage == {k: v["int8_gemm.calls"] for k, v in want.items() if "int8_gemm.calls" in v}
+    obs = [s for s in timer.spans if s.name == "ext_obs"]
+    assert len(obs) == (timer.counts["obs"] if fused else 0)
+    assert all(timer.spans[s.parent].name == "obs" for s in obs)
 
 
 def test_simulate_rare_traces_the_evolution_with_one_build_model_stage(monkeypatch):
@@ -135,9 +145,9 @@ def test_simulate_rare_traces_the_evolution_with_one_build_model_stage(monkeypat
     # every span of the route lies in one of the two evolutions
     assert {s.evolution for s in timer.spans} == {0, 1}
     assert "build_model" not in timer.counters
-    assert {"horner", "squarings", "doubling", "advance"} == set(timer.counters)
-    # both evolutions counted the same GEMMs
-    want = _ext_schedule(16, timer.counts["squarings"] // 2, 128, 150)
+    assert {"horner", "squarings", "doubling", "advance", "obs"} == set(timer.counters)
+    # both evolutions counted the same GEMMs and observables columns
+    want = _ext_schedule(16, timer.counts["squarings"] // 2, 128, 150, fused=True)
     for stage, c in want.items():
         assert timer.counters[stage] == {k: 2 * v for k, v in c.items()}
 
@@ -167,3 +177,23 @@ def test_int_mm_outside_a_tracer_records_nothing():
         with timer.stage("s"):
             tx.int_mm(a, b)
     assert timer.counters == {"s": {"int8_gemm.calls": 1, "int8_gemm.ops": 2 * 17 * 8 * 8}}
+
+
+def test_ext_obs_span_and_counters_outside_and_inside_a_stage():
+    from quantumsimulations_tpu_torch.ops.ext_obs import ext_obs_diagonals_int8
+
+    S = torch.ones((15, 64, 24), dtype=torch.int8)
+    jj, ii = zip(*[(j, s - j) for s in range(11) for j in range(s + 1)])
+    plain = ext_obs_diagonals_int8(S, S, jj, ii, 11)
+    timer = StageTimer(memory=True)  # no CUDA device: no memory counter
+    with tracing(timer):
+        with timer.stage("obs"):
+            got = ext_obs_diagonals_int8(S, S, jj, ii, 11)
+        ext_obs_diagonals_int8(S[:, :, :8].contiguous(), S[:, :, :8].contiguous(), jj, ii, 11)
+    assert torch.equal(got, plain)
+    # R = 3 * 6 + 1 rounded up to 8 = 24 rows of sums
+    assert timer.counters == {
+        "obs": {"ext_obs.columns": 24, "ext_obs.bytes": (2 * 11 * 64 + 4 * 11 * 24) * 24},
+        None: {"ext_obs.columns": 8, "ext_obs.bytes": (2 * 11 * 64 + 4 * 11 * 24) * 8}}
+    spans = [s for s in timer.spans if s.name == "ext_obs"]
+    assert [None if s.parent is None else timer.spans[s.parent].name for s in spans] == ["obs", None]

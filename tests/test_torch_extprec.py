@@ -129,10 +129,13 @@ def test_add_and_neg_identical():
 
 @pytest.mark.parametrize("k", [2, 3, 7, 10])
 def test_scalar_products_identical(k):
+    """The Horner step's a + p * c by a Taylor coefficient's limbs (the
+    port's one fused call) and the product by an exact rational scalar."""
     rng = np.random.default_rng(k)
-    a = _limbs(rng, (10, 12))
+    a, p = _limbs(rng, (10, 12)), _limbs(rng, (10, 12))
     cl = jx.taylor_coeff_limbs(10)[k]
-    _eq(tx._ext_scalar_mul_traced(_t(a), cl), jx._ext_scalar_mul_traced(_j(a), _j(cl)))
+    _eq(tx.ext_axpy_traced(_t(a), _t(p), cl),
+        jx.ext_add(_j(a), jx._ext_scalar_mul_traced(_j(p), _j(cl))))
     sl = jx.ext_scalar_limbs(Fraction(1, k))
     assert tx.ext_scalar_limbs(Fraction(1, k)) == sl
     _eq(tx.ext_scalar_mul(_t(a), sl), jx.ext_scalar_mul(_j(a), sl))
@@ -208,6 +211,27 @@ def test_ext_cmatmul_headroom_assert():
         tx.ext_cmatmul(z, z, z.transpose(1, 2).contiguous(), z.transpose(1, 2).contiguous())
 
 
+@pytest.mark.parametrize("chunk", [7, 100])
+def test_carry_blocks_change_no_bit(chunk, monkeypatch):
+    """The Horner step's a + p * c carried in blocks of a few columns (the
+    memory plan that fits dim 16384 on one card) equals the JAX package's
+    whole-stack ext_add of its scalar product bit for bit, and the Horner
+    recursion on it its whole-stack self (held to the JAX package's
+    below)."""
+    rng = np.random.default_rng(chunk)
+    x = rng.uniform(-0.06, 0.06, (2, 16, 16))
+    Are, Aim = (_t(np.asarray(jx.ext_split(_j(v)))) for v in x)
+    cl = jx.taylor_coeff_limbs(10)
+    whole = tx.ext_taylor_horner(Are, Aim, cl, 10, panel=8)
+    monkeypatch.setattr(tx, "_CARRY_CHUNK", chunk)
+    a, p = _limbs(rng, (9, 11)), _limbs(rng, (9, 11))
+    for k in (2, 7, 10):
+        _eq(tx.ext_axpy_traced(_t(a), _t(p), cl[k]),
+            jx.ext_add(_j(a), jx._ext_scalar_mul_traced(_j(p), _j(cl[k]))))
+    for g, w in zip(tx.ext_taylor_horner(Are, Aim, cl, 10, panel=8), whole):
+        assert torch.equal(g, w)
+
+
 def test_taylor_horner_and_identity_identical():
     rng = np.random.default_rng(5)
     a = rng.uniform(-0.06, 0.06, (2, 24, 24))
@@ -269,8 +293,9 @@ def test_preamble_limb_stacks_identical(split, monkeypatch):
     _, n_sq, dt_s, op = tep._ext_host_setup(mt.hamiltonian, mt.psi0, dt, dim, "cpu")
     assert op[0] == split
     Are, Aim = tep._ext_split_operator(op, dt_s, dim, "cpu")
-    got = tep._ext_preamble(Are, Aim, mt.psi0, n_sq, log2_block, pan,
-                            lambda name: contextlib.nullcontext())
+    stage = lambda name: contextlib.nullcontext()  # noqa: E731
+    got = tep._ext_powers(list(tep._ext_taylor(Are, Aim, pan, stage)), mt.psi0, n_sq, log2_block,
+                          pan, stage)
 
     coeffs = jnp.asarray(jx.taylor_coeff_limbs(jep._EXT_DEGREE))
     psi0 = mj.psi0
