@@ -50,6 +50,15 @@ Phases, each printing one line as it finishes:
      the port never calls it on the card), the eager call's time and the
      bound (operations at the int8 tensor-core rate or bytes at the HBM
      rate);
+ 6c. ext_carry (the ext chain's digit epilogue, ops/ext_carry.py) against
+     its plain versions bit for bit (two calls): the panel form at the n12
+     and n13 chains' panels (8192, 512) and (16384, 512), each written into
+     the last columns of its (L, dim, dim) product, at a doubling pass's
+     N 8 and at a ragged N 1000 at an odd offset; the Horner form over
+     8192^2 and 16384^2 columns; with
+     device times per call (CUDA-graph replay) of the kernel, the plain
+     version's time (CUDA events: its scalar band goes up from the host),
+     the eager call's time and the bytes bound at the HBM rate;
   7. the production sea-detuning sweep (the ``qst-sweep`` CLI defaults:
      n_sea=6, 13 detunings x 3 variants, 30 s, 20,000 steps) through the
      port's CLI with the "eig" solver and plots off, checked against the
@@ -581,6 +590,73 @@ def check_int8_gemm(shape, peaks, seed: int) -> dict:
     }
 
 
+#: ext_carry cases: (form, M or L, N or dim, N_total, p0) -- the panel form at
+#: the n12 chain's panel in its last columns of the (L, 8192, 8192) product
+#: (reported in the kernels line), the n13 chain's in the last of (L, 16384,
+#: 16384), a doubling pass's narrow N 8 and a ragged N at an odd offset; the
+#: Horner form over the n12 and n13 chains' dim^2 columns
+EXT_CARRY_CASES = (("panel", 8192, 512, 8192, 7680), ("panel", 16384, 512, 16384, 15872),
+                   ("panel", 8192, 8, 8, 0), ("panel", 8192, 1000, 1003, 3),
+                   ("horner", 15, 8192, None, None), ("horner", 15, 16384, None, None))
+
+
+def check_ext_carry(case, peaks, seed: int) -> dict:
+    """ext_carry's panel or Horner form against its plain version at one
+    shape, bit for bit (two calls), with timings and the bytes bound."""
+    import torch
+
+    from quantumsimulations_tpu_torch.ops import ext_carry as ec
+    from quantumsimulations_tpu_torch.ops.extprec import EXT_GUARD, EXT_LIMBS, taylor_coeff_limbs
+
+    form, m, n, n_total, p0 = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if form == "panel":
+        ws = torch.randint(-(1 << 28), 1 << 28, (3, EXT_LIMBS + EXT_GUARD, m, n), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        outs = [torch.zeros((EXT_LIMBS, m, n_total), dtype=torch.int8, device="cuda")
+                for _ in range(4)]
+        ec.ext_carry_panel(ws, outs[0], outs[1], p0)
+        ec.ext_carry_panel(ws, outs[2], outs[3], p0)
+        got, again = outs[:2], outs[2:]
+        want = [torch.zeros_like(outs[0]), torch.zeros_like(outs[0])]
+        ec.ext_carry_panel_plain(ws, *want, p0)
+
+        def kernel():
+            ec.ext_carry_panel(ws, outs[0], outs[1], p0)
+
+        def plain():
+            ec.ext_carry_panel_plain(ws, want[0], want[1], p0)
+
+        nbytes = float((3 * (EXT_LIMBS + EXT_GUARD) * 4 + 2 * EXT_LIMBS) * m * n)
+        shape = [EXT_LIMBS + EXT_GUARD, m, n]
+    else:
+        a, p = (random_limbs((m, n, n), gen) for _ in range(2))
+        cl = taylor_coeff_limbs(10)[7]
+        got, again = [ec.ext_axpy_traced(a, p, cl)], [ec.ext_axpy_traced(a, p, cl)]
+        want = [ec.ext_axpy_plain(a, p, cl)]
+
+        def kernel():
+            ec.ext_axpy_traced(a, p, cl)
+
+        def plain():
+            ec.ext_axpy_plain(a, p, cl)
+
+        nbytes = 3.0 * m * n * n
+        shape = [m, n * n]
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, again):
+        if not (torch.equal(g, w) and torch.equal(g, r)):
+            raise AssertionError(f"ext_carry {form} {shape}: {int((g != w).sum())} limbs differ "
+                                 f"from plain, two calls equal: {torch.equal(g, r)}")
+    ms = graph_ms(kernel, n=5, reps=3)
+    call_ms = cuda_ms(kernel, reps=10)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    bound = nbytes / peaks[3] * 1e3
+    return {"form": form, "shape": shape, "n_total": n_total, "p0": p0, "max_abs_err": 0,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "roofline": bound / ms, "mbytes": nbytes / 1e6}
+
+
 def production_params(n_sea: int, delta_Hz: float, dt: float, T: int):
     """bench._params_production(n_sea, delta_Hz, True, True, dt*(T-1), T) of
     the JAX package, built in the port: n_sea sea spins + the rare spin at
@@ -1110,9 +1186,9 @@ def n12_ext(oracle) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(launch_counts)
-    if launches["ext_obs_diagonals_int8"] <= 0 or launches["int8_gemm"] <= 0:
-        raise AssertionError(f"n12: ext_obs_diagonals_int8 or int8_gemm was not launched: "
-                             f"{launches}")
+    if min(launches[k] for k in ("ext_obs_diagonals_int8", "int8_gemm", "ext_carry")) <= 0:
+        raise AssertionError(f"n12: ext_obs_diagonals_int8, int8_gemm or ext_carry was not "
+                             f"launched: {launches}")
     if "squarings" not in timer.stages:
         raise AssertionError(f"n12: simulate_rare did not take the ext route: {timer.stages}")
     rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
@@ -2171,6 +2247,16 @@ def main() -> int:
             f"{r['library_roofline']:.1%})")
     gemm_path = gemm[INT8_GEMM_SHAPES[0]]
 
+    carry = {}
+    for i, case in enumerate(EXT_CARRY_CASES):
+        r = carry[case] = check_ext_carry(case, peaks, seed=50 + i)
+        say(f"[6c/20] ext_carry {r['form']} {tuple(r['shape'])} (N_total {r['n_total']}, p0 "
+            f"{r['p0']}): equal to plain bit for bit (two calls); device ms per call: kernel "
+            f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}; eager call {r['call_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms (bytes, {r['mbytes']:.1f} MB), {r['roofline']:.1%} of it")
+        torch.cuda.empty_cache()
+    carry_path = carry[EXT_CARRY_CASES[0]]
+
     tmp = tempfile.mkdtemp(prefix="qst_chip_smoke_")
     try:
         dir64, dir32 = os.path.join(tmp, "eig"), os.path.join(tmp, "eig32")
@@ -2547,6 +2633,25 @@ def main() -> int:
                   "call under CUDA events (host work included)",
         "call_ms": gemm_path["call_ms"],
         "shapes": {str(k): v for k, v in gemm.items()},
+    })
+    kernels.append({
+        "name": "ext_carry",
+        "route": "cuda",
+        "source": "quantumsimulations_tpu_torch/csrc/ext_carry.cu",
+        "replaces": "none: the JAX package carries the ext digits with XLA element-wise programs",
+        "launches": n12["launches"]["ext_carry"],
+        "max_abs_err": 0,
+        "ms": carry_path["ms"],
+        "kernel_ms": carry_path["ms"],
+        "plain_ms": carry_path["plain_ms"],
+        "bound_ms": carry_path["bound_ms"],
+        "bound_by": carry_path["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call forms the Karatsuba digits and carries them",
+        "timing": "ms: device time per call (CUDA-graph replay); plain_ms, call_ms: one eager "
+                  "call under CUDA events (host work included)",
+        "call_ms": carry_path["call_ms"],
+        "shapes": {str(k): v for k, v in carry.items()},
     })
     say(f"[20/20] total {time.perf_counter() - t_start:.1f} s; kernels:")
     say(json.dumps({"kernels": kernels}))

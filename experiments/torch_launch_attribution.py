@@ -15,14 +15,21 @@ turns.  Prints, and writes as JSON to ``--out`` where given:
   * where the int8 GEMM kernels (by name) landed, against the program's
     ``int8_gemm.calls``, and the kernel variants launched
     (``int8_gemm.wide``, ``int8_gemm.narrow``);
-  * ``int8_gemm_s``, ``int8_gemm_roofline``, ``limb_elementwise_s`` and
+  * ``int8_gemm_s``, ``int8_gemm_roofline``, ``limb_elementwise_s`` (the
+    ATen launches between the GEMMs, outside every launch span) and
     ``model_build_s`` as PERF.md's list of layers defines them;
+  * the digit epilogue's device seconds under the ``ext_carry`` span
+    (``ops/ext_carry.py``), the program's ``ext_carry.calls`` (per stage) and
+    ``ext_carry.bytes``, its roofline (those bytes over the card's HBM rate,
+    over its seconds), the launches ``launch_counts["ext_carry"]`` counted,
+    and the limb arithmetic in all (``ext_carry_s`` + ``limb_elementwise_s``);
   * the observables kernel's device seconds under the ``ext_obs`` span, the
     program's ``ext_obs.columns`` and ``ext_obs.bytes``, and its roofline
     (those bytes over the card's HBM rate, over its seconds);
   * each stage's ``memory.peak_bytes`` and the evolution's largest;
-  * the sum check: ``int8_gemm_s`` + ``limb_elementwise_s`` + the card's idle
-    seconds inside the chain and advance stages against those stages' seconds;
+  * the sum check: ``int8_gemm_s`` + ``ext_carry_s`` + ``limb_elementwise_s``
+    + the card's idle seconds inside the chain and advance stages against
+    those stages' seconds;
   * the walls of the untimed and the timed evolutions.
 
     python3 experiments/torch_launch_attribution.py [--workload NAME] [--seed N] [--pairs 2]
@@ -87,6 +94,7 @@ def main(argv=None) -> int:
     import reference
     import traffic as gen
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
+    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
     from quantumsimulations_tpu_torch.models.params import DipolarRareParams
     from quantumsimulations_tpu_torch.utils.profiling import StageTimer
 
@@ -108,11 +116,13 @@ def main(argv=None) -> int:
 
     timer = StageTimer(device=torch.device("cuda"), memory=True)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    reset_launch_counts()
     prof.start()
     w0 = time.time_ns()
     traced_wall = evolve(record, timer)
     w1 = time.time_ns()
     prof.stop()
+    launched = dict(launch_counts)
 
     p0 = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
@@ -150,6 +160,8 @@ def main(argv=None) -> int:
     variants = {v: sum(c.get(f"int8_gemm.{v}", 0) for c in timer.counters.values())
                 for v in ("wide", "narrow")}
     peaks = counts.card_peaks(torch.cuda.get_device_name(0))
+    carry_s = by_span.get("ext_carry", {}).get("seconds", 0.0)
+    carry_bytes = sum(c.get("ext_carry.bytes", 0) for c in timer.counters.values())
     obs_s = by_span.get("ext_obs", {}).get("seconds", 0.0)
     obs_bytes = sum(c.get("ext_obs.bytes", 0) for c in timer.counters.values())
     stage_peaks = {str(k): v["memory.peak_bytes"] for k, v in timer.counters.items()
@@ -178,6 +190,14 @@ def main(argv=None) -> int:
         "int8_gemm_s": gemm_s,
         "int8_gemm_roofline": 100.0 * ops / peaks["int8_ops_per_s"] / gemm_s if gemm_s else None,
         "limb_elementwise_s": limb_s,
+        "ext_carry_s": carry_s,
+        "ext_carry.calls": {str(k): v["ext_carry.calls"] for k, v in timer.counters.items()
+                            if "ext_carry.calls" in v},
+        "ext_carry.bytes": carry_bytes,
+        "ext_carry_roofline": (100.0 * carry_bytes / peaks["hbm_bytes_per_s"] / carry_s
+                               if carry_s else None),
+        "limb_arithmetic_s": carry_s + limb_s,
+        "launch_counts": launched,
         "model_build_s": timer.stages.get("build_model"),
         "ext_obs_s": obs_s,
         "ext_obs.columns": sum(c.get("ext_obs.columns", 0) for c in timer.counters.values()),
@@ -186,9 +206,9 @@ def main(argv=None) -> int:
                              if obs_s else None),
         "memory_peak_bytes": stage_peaks,
         "memory_peak_bytes_max": max(stage_peaks.values(), default=None),
-        "sum_check": {"gemm_plus_limb_plus_idle_s": gemm_s + limb_s + idle_s,
+        "sum_check": {"gemm_plus_limb_plus_idle_s": gemm_s + carry_s + limb_s + idle_s,
                       "idle_in_stages_s": idle_s, "stage_s": stage_s, "stage_span_s": span_s,
-                      "rel": (gemm_s + limb_s + idle_s) / stage_s - 1.0},
+                      "rel": (gemm_s + carry_s + limb_s + idle_s) / stage_s - 1.0},
     }
     print(json.dumps(out, indent=1), flush=True)
 

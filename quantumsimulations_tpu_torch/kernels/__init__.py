@@ -10,7 +10,7 @@ from __future__ import annotations
 
 launch_counts: dict[str, int] = {
     "cmatmul_f32": 0, "limb_matmul_canon": 0, "ext_obs_diagonals_int8": 0,
-    "z_expectations_f32": 0, "int8_gemm": 0,
+    "z_expectations_f32": 0, "int8_gemm": 0, "ext_carry": 0,
 }
 
 

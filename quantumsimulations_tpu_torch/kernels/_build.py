@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 
 #: every kernel source under csrc/ (one nvcc process each in build_all)
 SOURCES = ("cmatmul_f32", "limb_matmul_canon", "ext_obs_diagonals", "z_expectations_f32",
-           "int8_gemm")
+           "int8_gemm", "ext_carry")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

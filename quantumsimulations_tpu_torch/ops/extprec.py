@@ -45,22 +45,13 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.profiling import count, launch_span
+from .ext_carry import EXT_GUARD, EXT_LIMBS, ext_axpy_traced, ext_carry_panel
 from .int8_gemm import int8_gemm
 from .limb_kernels import carry_digits
 
-EXT_LIMBS = 15  # 15 * 5 = 75 bits below the grid top
-EXT_GUARD = 2  # extra product diagonals computed below the last kept limb
 # Fixed grid top exponent; a multiple of 5 so that products of two
 # grid-aligned limbs land exactly on grid positions (s = j + i).
 EXT_E = 5
-#: columns of the flattened stack per float64 product in
-#: :func:`_scalar_digits` (1 GB of float64 transient at L = 15)
-_SCALAR_CHUNK = 1 << 23
-#: columns of the flattened stack per int32 digit block of
-#: :func:`ext_axpy_traced`: one (dim, dim) plane at dim 8192, so a dim-16384
-#: stack carries in four blocks (~6 GB of transients, not ~25).  Every
-#: column carries on its own, so the blocks change no bit.
-_CARRY_CHUNK = 1 << 26
 
 
 def _ext_w(j: int) -> float:
@@ -169,51 +160,6 @@ def ext_scalar_mul(a: torch.Tensor, c_limbs) -> torch.Tensor:
     return _ext_carry(d)[:L]
 
 
-def _scalar_band(cl, L: int, device) -> torch.Tensor:
-    """The banded (L + G, L) float64 matrix of the scalar's limbs ``cl``:
-    digit m of ext * scalar is sum_i a[m - 1 - i] * cl[i], a short
-    convolution along the limb axis, so one matmul with this band."""
-    cl = np.asarray(cl, dtype=np.float64)
-    band = np.zeros((L + EXT_GUARD, L))
-    for m in range(L + EXT_GUARD):
-        for i in range(min(len(cl), m)):
-            j = m - 1 - i
-            if 0 <= j < L:
-                band[m, j] = cl[i]
-    return torch.as_tensor(band, device=device)
-
-
-def _scalar_digits(C: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """(L + G, n) int32 digits C @ flat of an (L, n) limb block, one float64
-    product per :data:`_SCALAR_CHUNK` columns (bounds the float64 transient).
-    Every partial sum is an integer below 2^14, so the float64 product is
-    exact and equals the JAX package's int32 sum."""
-    d = torch.empty((C.shape[0], flat.shape[1]), dtype=torch.int32, device=flat.device)
-    for c0 in range(0, flat.shape[1], _SCALAR_CHUNK):
-        c1 = c0 + _SCALAR_CHUNK
-        d[:, c0:c1] = C @ flat[:, c0:c1].to(torch.float64)
-    return d
-
-
-def ext_axpy_traced(a: torch.Tensor, p: torch.Tensor, cl) -> torch.Tensor:
-    """The Horner step's a + p * c, the scalar c given by its limbs ``cl`` as
-    data (the Taylor 1/k): the JAX package's
-    ``ext_add(a, _ext_scalar_mul_traced(p, cl))`` bit for bit.  It runs in
-    blocks of :data:`_CARRY_CHUNK` columns: each block's digits (one float64
-    matmul with :func:`_scalar_band`), shift carry, sum and second carry
-    before the next block, so neither the scaled stack nor a whole stack of
-    int32 digits is ever held."""
-    L = a.shape[0]
-    C = _scalar_band(cl, L, p.device)
-    fa, fp = a.reshape(L, -1), p.reshape(L, -1)
-    out = torch.empty(fa.shape, dtype=torch.int8, device=a.device)
-    for c0 in range(0, fa.shape[1], _CARRY_CHUNK):
-        c1 = c0 + _CARRY_CHUNK
-        scaled = carry_digits(_scalar_digits(C, fp[:, c0:c1]), 5, L)
-        out[:, c0:c1] = _ext_carry_i32(fa[:, c0:c1].to(torch.int32).add_(scaled))
-    return out.reshape(a.shape)
-
-
 def _ext_pairs(L: int) -> tuple[np.ndarray, np.ndarray]:
     """(j, i) limb-pair indices of every kept product diagonal (j + i =
     s < L + EXT_GUARD, both < L), ordered by (s, j)."""
@@ -232,12 +178,13 @@ def _ext_pairs(L: int) -> tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact
     (:func:`~.int8_gemm.int8_gemm`): on a CUDA tensor the hand-written
     Hopper GEMM, which takes A with unit stride along K and B K-contiguous
     (the transpose of an (N, K) row-major copy), 16-byte aligned; on the
-    CPU ``torch._int_mm`` on zero-padded operands.
+    CPU ``torch._int_mm`` on zero-padded operands.  With ``out`` (a
+    contiguous (M, N) int32 view) the result is written there.
 
     Under an active tracer (``utils/profiling.py``) the GEMM is a launch
     span ``int8_gemm``, and the innermost open stage counts
@@ -249,7 +196,7 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     M, K = a.shape
     N = b.shape[1]
     with launch_span("int8_gemm"):
-        out = int8_gemm(a, b)
+        out = int8_gemm(a, b, out=out)
     count("int8_gemm.calls", 1)
     count("int8_gemm.ops", 2 * max(M, 17) * -(-K // 8) * 8 * -(-N // 8) * 8)
     return out
@@ -309,34 +256,51 @@ def _right_rev(b: torch.Tensor) -> torch.Tensor:
     return b.flip(0).permute(2, 0, 1).contiguous().view(N, L * kw)
 
 
-def _ext_cpanel_product(left: ExtLeft, b_re: torch.Tensor, b_im: torch.Tensor):
-    """Exact diagonals + carry for (full ext A) @ (ext B panel).
+def _ext_workspace(left: ExtLeft, N: int, device) -> torch.Tensor:
+    """Flat int32 room for the (3, L + EXT_GUARD, M, N) Karatsuba GEMM
+    outputs of one column panel of up to N columns."""
+    return torch.empty(3 * (left.L + EXT_GUARD) * left.re.shape[0] * N, dtype=torch.int32,
+                       device=device)
+
+
+def _ext_cpanel_into(left: ExtLeft, b_re, b_im, ws: torch.Tensor, c_re, c_im, p0: int) -> None:
+    """Exact diagonals + carry for (full ext A) @ (ext B panel), the limbs
+    written into columns [p0, p0 + N) of the (L, M, N_total) stacks c_re,
+    c_im; ``ws`` is :func:`_ext_workspace` room for at least N columns.
 
     Karatsuba complex product, 3 int8 GEMMs per diagonal:
 
         m1 = a_re @ b_re,  m2 = a_im @ b_im,  m3 = (a_re+a_im) @ (b_re+b_im)
         re = m1 - m2,      im = m3 - m1 - m2
 
-    Each GEMM sums the diagonal's limb pairs along its K; EXT_GUARD extra
-    diagonals below the last kept limb feed carries upward and are then
-    dropped, as in the JAX package."""
+    Each GEMM sums the diagonal's limb pairs along its K into its slot of
+    the workspace; EXT_GUARD extra diagonals below the last kept limb feed
+    carries upward and are then dropped, as in the JAX package.  One
+    :func:`~.ext_carry.ext_carry_panel` forms re and im and carries both."""
     L, K = left.L, _whole_rows(left.K)
     N = b_re.shape[2]
-    r_re, r_im, r_sum = _right_rev(b_re), _right_rev(b_im), _right_rev(b_re + b_im)
     M = left.re.shape[0]
-    d_re = torch.empty((L + EXT_GUARD, M, N), dtype=torch.int32, device=b_re.device)
-    d_im = torch.empty_like(d_re)
-    for s in range(L + EXT_GUARD):
+    S = L + EXT_GUARD
+    d = ws[:3 * S * M * N].view(3, S, M, N)
+    r_re, r_im, r_sum = _right_rev(b_re), _right_rev(b_im), _right_rev(b_re + b_im)
+    for s in range(S):
         j0, j1 = max(0, s - L + 1), min(s + 1, L)
         ka = slice(j0 * K, j1 * K)
         kb = slice((L - 1 - s + j0) * K, (L - 1 - s + j1) * K)
-        m1 = int_mm(left.re[:, ka], r_re[:, kb].t())
-        m2 = int_mm(left.im[:, ka], r_im[:, kb].t())
-        m3 = int_mm(left.sum[:, ka], r_sum[:, kb].t())
-        torch.sub(m1, m2, out=d_re[s])
-        m3.sub_(m1).sub_(m2)
-        d_im[s] = m3
-    return carry_digits(d_re, 5, L), carry_digits(d_im, 5, L)
+        int_mm(left.re[:, ka], r_re[:, kb].t(), out=d[0, s])
+        int_mm(left.im[:, ka], r_im[:, kb].t(), out=d[1, s])
+        int_mm(left.sum[:, ka], r_sum[:, kb].t(), out=d[2, s])
+    ext_carry_panel(d, c_re, c_im, p0)
+
+
+def _ext_cpanel_product(left: ExtLeft, b_re: torch.Tensor, b_im: torch.Tensor):
+    """(full ext A) @ (ext B panel) as two new (L, M, N) limb stacks
+    (:func:`_ext_cpanel_into`)."""
+    L, M, N = left.L, left.re.shape[0], b_re.shape[2]
+    c_re = torch.empty((L, M, N), dtype=torch.int8, device=b_re.device)
+    c_im = torch.empty_like(c_re)
+    _ext_cpanel_into(left, b_re, b_im, _ext_workspace(left, N, b_re.device), c_re, c_im, 0)
+    return c_re, c_im
 
 
 def ext_cmatmul(
@@ -351,8 +315,8 @@ def ext_cmatmul(
     (L, M, K) @ (L, K, N) int8 canonical limbs -> (L, M, N).  ``are`` may be
     an :class:`ExtLeft` (``aim`` then None) prepared once for several
     products with the same left operand.  ``panel`` bounds the int32 digit
-    workspace to (L + EXT_GUARD, M, panel) per plane; the values do not
-    depend on it."""
+    workspace to (3, L + EXT_GUARD, M, panel), allocated once and reused
+    by every panel; the values do not depend on it."""
     assert EXT_E == 5, "product grid alignment requires EXT_E == 5"
     left = are if isinstance(are, ExtLeft) else ext_left(are, aim)
     L, K = left.L, left.K
@@ -363,15 +327,12 @@ def ext_cmatmul(
     N = bre.shape[2]
     M = left.re.shape[0]
     panel = max(1, min(panel, N))
-    if panel >= N:
-        return _ext_cpanel_product(left, bre, bim)
     c_re = torch.empty((L, M, N), dtype=torch.int8, device=bre.device)
     c_im = torch.empty_like(c_re)
+    ws = _ext_workspace(left, panel, bre.device)
     for p0 in range(0, N, panel):
         p1 = min(p0 + panel, N)
-        o_re, o_im = _ext_cpanel_product(left, bre[:, :, p0:p1], bim[:, :, p0:p1])
-        c_re[:, :, p0:p1] = o_re
-        c_im[:, :, p0:p1] = o_im
+        _ext_cpanel_into(left, bre[:, :, p0:p1], bim[:, :, p0:p1], ws, c_re, c_im, p0)
     return c_re, c_im
 
 

@@ -127,13 +127,29 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _out(out: torch.Tensor | None, M: int, N: int, device) -> torch.Tensor:
+    """The (M, N) int32 result: ``out`` after checking that the kernel can
+    write it (contiguous, on the operands' device, 8-byte aligned where N
+    is even: the epilogue stores int32 pairs), else a new tensor."""
+    if out is None:
+        return torch.empty((M, N), dtype=torch.int32, device=device)
+    if (out.dtype != torch.int32 or out.shape != (M, N) or not out.is_contiguous()
+            or out.device != device):
+        raise ValueError(f"int8_gemm writes a contiguous ({M}, {N}) int32 tensor on {device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if out.data_ptr() % (8 if N % 2 == 0 else 4):
+        raise ValueError("int8_gemm writes int32 pairs: out must start 8-byte aligned")
+    return out
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     lda, ldb = int8_gemm_layout(a, b)
     M, K = a.shape
     N = b.shape[1]
     variant, bn, splits = int8_gemm_plan(M, N, K, _sm_count(a.device))
-    # split blocks add into C
-    out = (torch.zeros if splits > 1 else torch.empty)((M, N), dtype=torch.int32, device=a.device)
+    out = _out(out, M, N, a.device)
+    if splits > 1:  # split blocks add into C
+        out.zero_()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _lib_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, lda, ldb, bn, splits,
@@ -145,11 +161,14 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def int8_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact: the kernel on a
-    CUDA tensor, :func:`int8_gemm_plain` on a CPU one."""
+    CUDA tensor, :func:`int8_gemm_plain` on a CPU one.  With ``out``, a
+    contiguous (M, N) int32 tensor (a view of a larger workspace), the
+    result is written there and returned."""
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return int8_gemm_plain(a, b)
+        res = int8_gemm_plain(a, b)
+        return res if out is None else _out(out, *res.shape, a.device).copy_(res)
     if a.device.type != "cuda":
         raise ValueError(f"int8_gemm runs on cuda or cpu, not {a.device}")
-    return _launch(a, b)
+    return _launch(a, b, out)

@@ -261,18 +261,18 @@ def _ext_sharded_cmatmul(left, b_re, b_im, group, panel: int, dim: int):
     """Row-sharded exact complex limb product C = A @ B: ``left`` the
     prepared left operand of A's rows (ops/extprec.ext_left), b_re/b_im the
     (L, rows_local, dim) canonical limbs of B's rows; one tiled all_gather
-    of B's column-panel limbs per panel and plane."""
-    from ..ops.extprec import _ext_cpanel_product
+    of B's column-panel limbs per panel and plane, each panel carried into
+    C's columns through one digit workspace."""
+    from ..ops.extprec import _ext_cpanel_into, _ext_workspace
 
     L, rows_local = b_re.shape[0], left.re.shape[0]
     c_re = torch.empty((L, rows_local, dim), dtype=torch.int8, device=b_re.device)
     c_im = torch.empty_like(c_re)
+    ws = _ext_workspace(left, min(panel, dim), b_re.device)
     for p0 in range(0, dim, panel):
         p1 = min(p0 + panel, dim)
-        o_re, o_im = _ext_cpanel_product(left, all_gather_cat(b_re[:, :, p0:p1], group, dim=1),
-                                         all_gather_cat(b_im[:, :, p0:p1], group, dim=1))
-        c_re[:, :, p0:p1] = o_re
-        c_im[:, :, p0:p1] = o_im
+        _ext_cpanel_into(left, all_gather_cat(b_re[:, :, p0:p1], group, dim=1),
+                         all_gather_cat(b_im[:, :, p0:p1], group, dim=1), ws, c_re, c_im, p0)
     return c_re, c_im
 
 

@@ -52,6 +52,7 @@ from quantumsimulations_tpu_torch.kernels import launch_counts
 from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.ops import cmatmul as cm
+from quantumsimulations_tpu_torch.ops import ext_carry as ec
 from quantumsimulations_tpu_torch.ops import ext_obs as eo
 from quantumsimulations_tpu_torch.ops import extprec as ep
 from quantumsimulations_tpu_torch.ops import int8_gemm as ig
@@ -354,6 +355,101 @@ def test_ext_cmatmul_on_card_equals_cpu(cuda_device, M, K, N, panel):
     got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops], panel=panel)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# The digit epilogue (csrc/ext_carry.cu) against its plain versions, bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _karatsuba_outputs(M, N, gen, device, digits):
+    """(3, 17, M, N) int32 GEMM outputs m1, m2, m3 of one panel: random
+    within the int32 range, odd multiples of 16 (exact ties of the
+    cascade), or every output at ext_cmatmul's headroom bound."""
+    shape = (3, ep.EXT_LIMBS + ep.EXT_GUARD, M, N)
+    if digits == "random":
+        return torch.randint(-(1 << 28), 1 << 28, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+    if digits == "ties":
+        m = 16 * torch.randint(-3, 4, shape, generator=gen, device=device, dtype=torch.int32)
+        m[2] += m[0] + m[1]
+        return m
+    k = (2**31 - 1) // (6534 * ep.EXT_LIMBS)
+    sign = torch.randint(0, 2, shape, generator=gen, device=device, dtype=torch.int32) * 2 - 1
+    bound = torch.tensor([1089, 1089, 4356], device=device, dtype=torch.int32) * k * ep.EXT_LIMBS
+    return sign * bound[:, None, None, None]
+
+
+@pytest.mark.parametrize("M,N,n_total,p0,digits", [
+    (8192, 512, 8192, 1536, "random"), (8192, 512, 8192, 1536, "ties"),
+    (8192, 512, 8192, 7680, "headroom"), (16384, 512, 16384, 15872, "random"),
+    (8192, 1, 1, 0, "random"), (8192, 2, 2, 0, "random"), (8192, 8, 8, 0, "random"),
+    (8192, 256, 256, 0, "random"), (8192, 1000, 1003, 3, "random"), (7, 13, 40, 9, "ties")])
+def test_ext_carry_panel_matches_plain(cuda_device, M, N, n_total, p0, digits):
+    """The panel form at the chain's panel (n12 and n13, p0 > 0), the
+    doubling's narrow N, a ragged N at an odd offset: one launch, limbs equal
+    to the plain version's bit for bit, the other columns untouched."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M + N + p0 + len(digits))
+    ws = _karatsuba_outputs(M, N, gen, cuda_device, digits)
+    c = [_ext_limbs((ep.EXT_LIMBS, M, n_total), gen, cuda_device) for _ in range(2)]
+    want = [x.clone() for x in c]
+    ec.ext_carry_panel_plain(ws, *want, p0)
+    before = launch_counts["ext_carry"]
+    ec.ext_carry_panel(ws, *c, p0)
+    assert launch_counts["ext_carry"] == before + 1
+    for g, w in zip(c, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(15, 8192, 8192), (15, 16384, 16384), (15, 7, 9)])
+def test_ext_axpy_matches_plain(cuda_device, shape):
+    """The Horner form over dim^2 columns (n12, n13) and a ragged count: one
+    launch per call, a + p c equal to the plain version's bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    a, p = _ext_limbs(shape, gen, cuda_device), _ext_limbs(shape, gen, cuda_device)
+    coeffs = ep.taylor_coeff_limbs(10)
+    for k in (2, 3, 10):
+        before = launch_counts["ext_carry"]
+        got = ec.ext_axpy_traced(a, p, coeffs[k])
+        assert launch_counts["ext_carry"] == before + 1
+        want = ec.ext_axpy_plain(a, p, coeffs[k])
+        assert torch.equal(got, want)
+        del got, want
+
+
+def test_ext_carry_cuda_tensors_never_take_the_plain_versions(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    gen = torch.Generator().manual_seed(13)
+    ops = [_ext_limbs(s, gen, "cpu") for s in ((15, 64, 64), (15, 64, 64), (15, 64, 40), (15, 64, 40))]
+    want = ep.ext_cmatmul(*ops, panel=16)
+    cl = ep.taylor_coeff_limbs(10)[4]
+    want_axpy = ep.ext_axpy_traced(ops[2], ops[3], cl)
+    monkeypatch.setattr(ec, "ext_carry_panel_plain", refuse)
+    monkeypatch.setattr(ec, "ext_axpy_plain", refuse)
+    before = launch_counts["ext_carry"]
+    got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops], panel=16)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    got_axpy = ep.ext_axpy_traced(ops[2].to(cuda_device), ops[3].to(cuda_device), cl)
+    assert torch.equal(got_axpy.cpu(), want_axpy)
+    assert launch_counts["ext_carry"] == before + 3 + 1  # three panels of 16, one axpy
+
+
+def test_ext_carry_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    ws = _karatsuba_outputs(8, 4, gen, cuda_device, "random")
+    c = [torch.zeros((15, 8, 4), dtype=torch.int8, device=cuda_device) for _ in range(2)]
+    before = launch_counts["ext_carry"]
+    with pytest.raises(ValueError, match="compiled for 15 limbs"):
+        ec.ext_carry_panel(ws[:, :16], c[0][:14], c[1][:14], 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = [torch.zeros((15, 8, 8), dtype=torch.int8, device=cuda_device) for _ in range(2)]
+        ec.ext_carry_panel(ws, wide[0][:, :, :4], wide[1][:, :, :4], 0)
+    with pytest.raises(ValueError, match="integers"):
+        ec.ext_axpy_traced(c[0], c[1], [0.5] * 15)
+    assert launch_counts["ext_carry"] == before
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,13 @@ Under an active tracer every ``ops/extprec.py::int_mm`` is a launch span
 ``int8_gemm`` and adds ``int8_gemm.calls`` and ``int8_gemm.ops`` (2 M K N of
 the padded operands) to the innermost open stage; every call of the
 observables kernel's wrapper is a launch span ``ext_obs`` and adds
-``ext_obs.columns`` and ``ext_obs.bytes`` (its least HBM bytes).  The counts here are made
-from the routes' product schedules and the padding rule, independently of the
-code that counts; the rows must not depend on whether a timer is given.
+``ext_obs.columns`` and ``ext_obs.bytes`` (its least HBM bytes); every call
+of the digit epilogue (``ops/ext_carry.py``: one per column panel of an ext
+product, one per Horner axpy) is a launch span ``ext_carry`` and adds
+``ext_carry.calls`` and ``ext_carry.bytes`` (its least HBM bytes).  The
+counts here are made from the routes' product schedules and the padding
+rule, independently of the code that counts; the rows must not depend on
+whether a timer is given.
 """
 
 import numpy as np
@@ -34,15 +38,17 @@ def _gemm(m, k, n):
     return 1, 2 * max(m, 17) * _up8(k) * _up8(n)
 
 
-def _add(acc, stage, calls_ops):
-    c = acc.setdefault(stage, {"int8_gemm.calls": 0, "int8_gemm.ops": 0})
-    c["int8_gemm.calls"] += calls_ops[0]
-    c["int8_gemm.ops"] += calls_ops[1]
+def _add(acc, stage, calls_ops, kind="int8_gemm", unit="ops"):
+    c = acc.setdefault(stage, {})
+    c[f"{kind}.calls"] = c.get(f"{kind}.calls", 0) + calls_ops[0]
+    c[f"{kind}.{unit}"] = c.get(f"{kind}.{unit}", 0) + calls_ops[1]
 
 
 def _ext_product(acc, stage, m, k, n, panel):
     """ext_cmatmul of (L, m, k) @ (L, k, n): per column panel, three
-    Karatsuba GEMMs per kept diagonal over its limb pairs along K."""
+    Karatsuba GEMMs per kept diagonal over its limb pairs along K, then one
+    digit epilogue reading the 3 (L + G) int32 digits and writing 2 L limbs
+    of each of its m w elements."""
     L, G = tx.EXT_LIMBS, tx.EXT_GUARD
     panel = max(1, min(panel, n))
     for p0 in range(0, n, panel):
@@ -51,6 +57,7 @@ def _ext_product(acc, stage, m, k, n, panel):
             pairs = min(s + 1, L) - max(0, s - L + 1)
             for _ in range(3):
                 _add(acc, stage, _gemm(m, pairs * k, w))
+        _add(acc, stage, (1, (3 * (L + G) * 4 + 2 * L) * m * w), "ext_carry", "bytes")
 
 
 def _ext_schedule(dim, n_sq, block, T, panel=512, fused=False):
@@ -58,6 +65,8 @@ def _ext_schedule(dim, n_sq, block, T, panel=512, fused=False):
     pan = min(panel, dim)
     for _ in range(tep._EXT_DEGREE - 1):
         _ext_product(acc, "horner", dim, dim, dim, pan)
+        for _ in range(2):  # a + p c, one plane each: p's and a's limbs in, the sum's out
+            _add(acc, "horner", (1, 3 * tx.EXT_LIMBS * dim * dim), "ext_carry", "bytes")
     for _ in range(n_sq):
         _ext_product(acc, "squarings", dim, dim, dim, pan)
     for k in range(block.bit_length() - 1):
@@ -126,6 +135,30 @@ def test_ext_gemm_counters_match_the_padded_shapes(n4, block, fused):
     obs = [s for s in timer.spans if s.name == "ext_obs"]
     assert len(obs) == (timer.counts["obs"] if fused else 0)
     assert all(timer.spans[s.parent].name == "obs" for s in obs)
+
+
+def test_ext_carry_calls_are_the_panels_and_the_axpys(n4):
+    """One ``ext_carry`` span and call per column panel of every ext product
+    (four panels of 8 at dim 32), and one per Horner axpy (two a step), each
+    inside the stage that counted it."""
+    timer = StageTimer()
+    with tracing(timer):
+        tep.expm_traces_assembled_ext(*_args(n4, TIMES), block=16, panel=8, device="cpu",
+                                      timer=timer)
+    n_blocks = -(-len(TIMES) // 16)
+    want = {"horner": (4 + 2) * (tep._EXT_DEGREE - 1),
+            "squarings": 4 * timer.counts["squarings"],
+            "doubling": 4 + 4 * 4,  # 4 seed-state products of N <= 8, 4 whole products
+            # whole chunks of block advances, each one panel (panel = block)
+            "advance": -(-n_blocks // min(tep._EXT_ADV_CHUNK, n_blocks))
+            * min(tep._EXT_ADV_CHUNK, n_blocks)}
+    got = {k: v["ext_carry.calls"] for k, v in timer.counters.items() if "ext_carry.calls" in v}
+    assert got == want
+    spans = [s for s in timer.spans if s.name == "ext_carry"]
+    by_stage = {}
+    for s in spans:
+        by_stage[timer.spans[s.parent].name] = by_stage.get(timer.spans[s.parent].name, 0) + 1
+    assert by_stage == want
 
 
 def test_simulate_rare_traces_the_evolution_with_one_build_model_stage(monkeypatch):

@@ -30,6 +30,7 @@ from quantumsimulations_tpu.ops import extprec as jx
 from quantumsimulations_tpu_torch.dynamics import expm_propagator as tep
 from quantumsimulations_tpu_torch.models.dipolar import build_model as tbuild
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams as TParams
+from quantumsimulations_tpu_torch.ops import ext_carry
 from quantumsimulations_tpu_torch.ops import extprec as tx
 
 L = tx.EXT_LIMBS
@@ -223,13 +224,143 @@ def test_carry_blocks_change_no_bit(chunk, monkeypatch):
     Are, Aim = (_t(np.asarray(jx.ext_split(_j(v)))) for v in x)
     cl = jx.taylor_coeff_limbs(10)
     whole = tx.ext_taylor_horner(Are, Aim, cl, 10, panel=8)
-    monkeypatch.setattr(tx, "_CARRY_CHUNK", chunk)
+    monkeypatch.setattr(ext_carry, "_CARRY_CHUNK", chunk)
     a, p = _limbs(rng, (9, 11)), _limbs(rng, (9, 11))
     for k in (2, 7, 10):
         _eq(tx.ext_axpy_traced(_t(a), _t(p), cl[k]),
             jx.ext_add(_j(a), jx._ext_scalar_mul_traced(_j(p), _j(cl[k]))))
     for g, w in zip(tx.ext_taylor_horner(Are, Aim, cl, 10, panel=8), whole):
         assert torch.equal(g, w)
+
+
+#: the largest K ext_cmatmul's int32 headroom assert lets through
+K_HEADROOM = (2**31 - 1) // (6534 * L)
+
+
+def _cascade_np(d, n_out):
+    """The int32 carry cascade restated in numpy int32 (nearest, ties toward
+    +inf; sums wrap as the int32 tensors' do): (n, ...) digits -> the first
+    ``n_out`` limbs, and how many steps met an exact tie (t + 16 a multiple
+    of 32)."""
+    d = np.asarray(d).astype(np.int32)
+    c = np.zeros(d.shape[1:], np.int32)
+    out = np.empty((n_out,) + d.shape[1:], np.int32)
+    ties = 0
+    for s in range(d.shape[0] - 1, 0, -1):
+        t = d[s] + c
+        ties += int(((t.astype(np.int64) + 16) % 32 == 0).sum())
+        c = (t + np.int32(16)) >> 5
+        if s < n_out:
+            out[s] = t - np.int32(32) * c
+    out[0] = d[0] + c
+    return out.astype(np.int8), ties
+
+
+def _karatsuba_outputs(case, rng, M, N):
+    """(3, L + G, M, N) int32 GEMM outputs m1, m2, m3 of one panel."""
+    shape = (L + tx.EXT_GUARD, M, N)
+    if case == "random":
+        return rng.integers(-(1 << 20), 1 << 20, (3,) + shape).astype(np.int32)
+    if case == "headroom":  # every output at the bound, so |im| = 6534 K L < 2^31
+        a, b = 1089 * K_HEADROOM * L, 4356 * K_HEADROOM * L
+        signs = rng.choice(np.array([-1, 1]), (3,) + shape)
+        return (signs * np.array([a, a, b])[:, None, None, None]).astype(np.int32)
+    # ties: digits that are odd multiples of 16, and zeros that pass a carry on
+    m = rng.choice(np.array([-48, -16, 0, 0, 16, 48]), (3,) + shape)
+    m[2] += m[0] + m[1]  # im = m3 - m1 - m2 takes the same values
+    return m.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "headroom", "ties"])
+def test_carry_panel_plain_equals_the_karatsuba_carry(case):
+    """The digit epilogue's plain version (and its dispatch on the CPU) =
+    the carry of the Karatsuba differences, as the port composed it and as
+    the JAX package's ``_ext_carry_i32`` does, bit for bit, written into its
+    panel's columns and nowhere else."""
+    rng = np.random.default_rng(len(case))
+    M, N, n_total, p0 = 5, 13, 40, 9
+    ws = _karatsuba_outputs(case, rng, M, N)
+    m1, m2, m3 = ws.astype(np.int64)
+    d_re, d_im = m1 - m2, m3 - m1 - m2  # exact: the headroom keeps them in int32
+    assert max(np.abs(d_re).max(), np.abs(d_im).max()) < 2**31
+    before = _limbs(rng, (M, n_total)), _limbs(rng, (M, n_total))
+    for carry in (ext_carry.ext_carry_panel_plain, ext_carry.ext_carry_panel):
+        c_re, c_im = _t(before[0]), _t(before[1])
+        carry(_t(ws), c_re, c_im, p0)
+        for got, d, old in ((c_re, d_re, before[0]), (c_im, d_im, before[1])):
+            d32 = d.astype(np.int32)
+            panel = got[:, :, p0:p0 + N]
+            _eq(panel, tx.carry_digits(_t(d32), 5, L))
+            _eq(panel, np.asarray(jx._ext_carry_i32(_j(d32)))[:L])
+            want, ties = _cascade_np(d, L)
+            np.testing.assert_array_equal(panel.numpy(), want)
+            got_np = got.numpy()
+            np.testing.assert_array_equal(np.delete(got_np, np.s_[p0:p0 + N], axis=2),
+                                          np.delete(old, np.s_[p0:p0 + N], axis=2))
+            if case == "ties":
+                assert ties > 50
+
+
+def _axpy_case(case, rng):
+    a, p = _limbs(rng, (6, 9)), _limbs(rng, (6, 9))
+    if case == "random":
+        return a, p, jx.taylor_coeff_limbs(10)[7]
+    if case == "zero-limbs":  # 1/16 and 1/32: one nonzero limb, the rest zero
+        return a, p, np.asarray(jx.ext_scalar_limbs(Fraction(3, 64)))
+    # ties: p c's digits 16 p[m - 1] are odd multiples of 16 where p is odd
+    return a, rng.integers(-3, 4, p.shape).astype(np.int8), np.eye(L)[0] * 16
+
+
+@pytest.mark.parametrize("case", ["random", "zero-limbs", "ties"])
+def test_axpy_plain_equals_the_band_composition(case):
+    """The Horner form's plain version (and its dispatch on the CPU) =
+    ext_add(a, carry_digits(band @ p)), the band of the scalar's limbs
+    built here, and the JAX package's ext_add of its scalar product, bit for
+    bit."""
+    rng = np.random.default_rng(len(case) + 100)
+    a, p, cl = _axpy_case(case, rng)
+    S = L + tx.EXT_GUARD
+    band = np.zeros((S, L), np.int64)
+    for m in range(S):
+        for i in range(min(len(cl), m)):
+            if m - 1 - i < L:
+                band[m, m - 1 - i] = int(cl[i])
+    digits = np.einsum("mj,j...->m...", band, p.astype(np.int64))
+    scaled, ties_scaled = _cascade_np(digits, L)
+    want, ties_sum = _cascade_np(a.astype(np.int64) + scaled, L)
+    composed = tx.ext_add(_t(a), tx.carry_digits(_t(digits.astype(np.int32)), 5, L))
+    np.testing.assert_array_equal(composed.numpy(), want)
+    jax_want = jx.ext_add(_j(a), jx._ext_scalar_mul_traced(_j(p), _j(cl)))
+    for axpy in (ext_carry.ext_axpy_plain, ext_carry.ext_axpy_traced):
+        got = axpy(_t(a), _t(p), cl)
+        np.testing.assert_array_equal(got.numpy(), want)
+        _eq(got, jax_want)
+    if case == "zero-limbs":
+        assert (np.asarray(cl) == 0).sum() >= L - 2
+    if case == "ties":
+        assert ties_scaled > 20 and ties_sum > 5
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """On CPU tensors the epilogue never reaches the kernel's launchers, and
+    launches nothing."""
+    from quantumsimulations_tpu_torch.kernels import launch_counts
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel launcher called for CPU tensors")
+
+    monkeypatch.setattr(ext_carry, "_launch_panel", refuse)
+    monkeypatch.setattr(ext_carry, "_launch_axpy", refuse)
+    before = dict(launch_counts)
+    rng = np.random.default_rng(3)
+    are, aim, bre, bim = (_limbs(rng, (12, 12)) for _ in range(4))
+    want = jx.ext_cmatmul(_j(are), _j(aim), _j(bre), _j(bim), panel=12)
+    for g, w in zip(tx.ext_cmatmul(_t(are), _t(aim), _t(bre), _t(bim), panel=5), want):
+        _eq(g, w)
+    cl = jx.taylor_coeff_limbs(10)[3]
+    _eq(tx.ext_axpy_traced(_t(are), _t(bre), cl),
+        jx.ext_add(_j(are), jx._ext_scalar_mul_traced(_j(bre), _j(cl))))
+    assert launch_counts == before
 
 
 def test_taylor_horner_and_identity_identical():

@@ -168,3 +168,29 @@ def test_int8_gemm_refuses_other_devices():
     a = torch.zeros((4, 4), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ig.int8_gemm(a, a)
+
+
+@pytest.mark.parametrize("shape", [(5, 37, 3), (40, 129, 70)])
+def test_out_takes_a_view_of_a_workspace(shape):
+    """``out=`` writes the product into a contiguous (M, N) view of a larger
+    int32 workspace, returns that view and leaves the rest as it was."""
+    M, K, N = shape
+    gen = torch.Generator().manual_seed(M + K + N)
+    a = torch.randint(-66, 67, (M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-66, 67, (K, N), generator=gen, dtype=torch.int8)
+    ws = torch.full((3, M, N), 7, dtype=torch.int32)
+    got = tx.int_mm(a, b, out=ws[1])
+    assert got.data_ptr() == ws[1].data_ptr()
+    assert torch.equal(ws[1], ig.int8_gemm_plain(a, b))
+    assert (ws[0] == 7).all() and (ws[2] == 7).all()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "strided"])
+def test_out_refuses_what_the_kernel_cannot_write(bad):
+    a = torch.ones((8, 16), dtype=torch.int8)
+    b = torch.ones((16, 4), dtype=torch.int8)
+    out = {"dtype": torch.empty((8, 4), dtype=torch.int64),
+           "shape": torch.empty((8, 5), dtype=torch.int32),
+           "strided": torch.empty((8, 8), dtype=torch.int32)[:, :4]}[bad]
+    with pytest.raises(ValueError, match="contiguous"):
+        ig.int8_gemm(a, b, out=out)
