@@ -991,17 +991,17 @@ def n12_krylov(n12: dict) -> dict:
         spectral_norm_bound,
         spectral_norm_estimate,
     )
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.dipolar import build_model
 
     T = N12_CHECK_STEPS
     params = dataclasses.replace(n12_params(T), solver_method="krylov")
-    reset_launch_counts()
     t0 = time.perf_counter()
-    t, named = simulate_rare(params, device="cuda")
+    with counting() as tr:
+        t, named = simulate_rare(params, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(launch_counts)
+    launches = kernel_launches(tr)
     rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
     if rows.shape != (7, T) or not np.isfinite(rows).all():
         raise AssertionError(f"n12 krylov: rows not finite of shape (7, {T}): {rows.shape}")
@@ -1046,7 +1046,7 @@ def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
     from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
     from quantumsimulations_tpu_torch.dynamics.krylov import spectral_norm_bound
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.dipolar import build_model
     from quantumsimulations_tpu_torch.ops.zexp import z_expectations_f32, z_sign_table
 
@@ -1057,9 +1057,9 @@ def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
     lam = spectral_norm_bound(model.hamiltonian)
     K = chebyshev_coefficients(lam, times).shape[1]
 
-    reset_launch_counts()
     t0 = time.perf_counter()
-    states = chebyshev_states(model.hamiltonian, model.psi0, times, device="cuda")
+    with counting() as tr:
+        states = chebyshev_states(model.hamiltonian, model.psi0, times, device="cuda")
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     rows = rows_from_states(model.hamiltonian, model.psi0, states, model.dims,
@@ -1082,9 +1082,10 @@ def n13_chebyshev(f64_rows, oracle_rows, peaks) -> dict:
     S = torch.as_tensor(states, device="cuda").T
     re, im = S.real.contiguous(), S.imag.contiguous()
     signs = torch.as_tensor(z_sign_table(model.dims), device="cuda")
-    z = z_expectations_f32(re, im, signs)
+    with counting(tr):
+        z = z_expectations_f32(re, im, signs)
     torch.cuda.synchronize()
-    launches = dict(launch_counts)
+    launches = kernel_launches(tr)
     if launches["z_expectations_f32"] <= 0:
         raise AssertionError(f"n13 chebyshev: z_expectations_f32 was not launched: {launches}")
     z = z.double().cpu().numpy()
@@ -1124,20 +1125,20 @@ def n13_tier(model, arith: str, lam: float, T: int) -> dict:
     import torch
 
     from quantumsimulations_tpu_torch.dynamics.cheb_step import chebyshev_step_traces
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.utils.profiling import StageTimer
 
     timer = StageTimer(device=torch.device("cuda"))
-    reset_launch_counts()
     t0 = time.perf_counter()
-    rows = chebyshev_step_traces(
-        model.hamiltonian, model.psi0, N13_DT * np.arange(T), model.dims,
-        model.n_sea_effective, model.idx_rare, norm_bound=lam, arithmetic=arith,
-        device="cuda", timer=timer,
-    )
+    with counting(timer):
+        rows = chebyshev_step_traces(
+            model.hamiltonian, model.psi0, N13_DT * np.arange(T), model.dims,
+            model.n_sea_effective, model.idx_rare, norm_bound=lam, arithmetic=arith,
+            device="cuda", timer=timer,
+        )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(launch_counts)
+    launches = kernel_launches(timer)
     return {"rows": rows, "wall_s": wall, "launches": launches,
             "stages_s": {k: v["seconds"] for k, v in timer.as_dict().items()}}
 
@@ -1169,7 +1170,7 @@ def n12_ext(oracle) -> dict:
     from quantumsimulations_tpu_torch.dynamics.cheb_step import chebyshev_step_traces
     from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
     from quantumsimulations_tpu_torch.dynamics.evolve import _auto_method, simulate_rare
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.dipolar import build_model
     from quantumsimulations_tpu_torch.ops.extprec import EXT_GUARD, EXT_LIMBS, _ext_pairs
     from quantumsimulations_tpu_torch.utils.profiling import StageTimer
@@ -1180,15 +1181,14 @@ def n12_ext(oracle) -> dict:
     if _auto_method(dim) != "ext":
         raise AssertionError(f"n12: auto picks {_auto_method(dim)!r} at dim {dim}, not 'ext'")
     timer = StageTimer(device=torch.device("cuda"))
-    reset_launch_counts()
     t0 = time.perf_counter()
     t, named = simulate_rare(params, device="cuda", timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(launch_counts)
-    if min(launches[k] for k in ("ext_obs_diagonals_int8", "int8_gemm", "ext_carry")) <= 0:
-        raise AssertionError(f"n12: ext_obs_diagonals_int8, int8_gemm or ext_carry was not "
-                             f"launched: {launches}")
+    launches = kernel_launches(timer)
+    if min(launches[k] for k in ("ext_obs", "int8_gemm", "ext_carry")) <= 0:
+        raise AssertionError(f"n12: ext_obs, int8_gemm or ext_carry was not launched: "
+                             f"{launches}")
     if "squarings" not in timer.stages:
         raise AssertionError(f"n12: simulate_rare did not take the ext route: {timer.stages}")
     rows = np.stack([named[k] for k in TRACE_ROWS[:7]])
@@ -1238,6 +1238,17 @@ def sim_params(argv):
     return params_from_args(build_parser().parse_args(argv))
 
 
+@contextlib.contextmanager
+def counting(timer=None):
+    """``timer`` (a new StageTimer without one), the active tracer inside the
+    block: ``kernels.launches`` of it then reads the block's kernel launches."""
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
+
+    timer = StageTimer() if timer is None else timer
+    with tracing(timer):
+        yield timer
+
+
 def timed(fn, *args, **kwargs):
     """(result, wall seconds) of fn(*args, **kwargs), ending in a device sync."""
     import torch
@@ -1263,12 +1274,12 @@ def dense_expm() -> dict:
     import numpy as np
 
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
 
     params = sim_params(SIM_ARGV)
-    reset_launch_counts()
-    (t, named), wall = timed(simulate_rare, params, device="cuda")
-    launches = dict(launch_counts)
+    with counting() as tr:
+        (t, named), wall = timed(simulate_rare, params, device="cuda")
+    launches = kernel_launches(tr)
     (t2, ref), eig_wall = timed(simulate_rare, dataclasses.replace(params, solver_method="eig"),
                                 device="cuda")
     keys = [k for k in ref if k != "state_norm"]
@@ -1296,16 +1307,16 @@ def dopri_rotating() -> dict:
     from quantumsimulations_tpu_torch.dynamics.dopri import dopri_propagate_traces
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
     from quantumsimulations_tpu_torch.dynamics.observables import assemble_traces
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.dipolar import build_model
 
     params = dataclasses.replace(sim_params(SIM_ARGV), t_final=DOPRI_T_FINAL, steps=DOPRI_STEPS)
     model = build_model(params)
     t = np.linspace(0.0, params.t_final, params.steps)
-    reset_launch_counts()
-    out, wall = timed(dopri_propagate_traces, model.hamiltonian, model.psi0, t, model.dims,
-                      atol=DOPRI_TOL[0], rtol=DOPRI_TOL[1], device="cuda")
-    launches = dict(launch_counts)
+    with counting() as tr:
+        out, wall = timed(dopri_propagate_traces, model.hamiltonian, model.psi0, t, model.dims,
+                          atol=DOPRI_TOL[0], rtol=DOPRI_TOL[1], device="cuda")
+    launches = kernel_launches(tr)
     named = assemble_traces(out["site_xyz"], out["norm"], model.n_sea_effective, model.idx_rare)
     _, ref = simulate_rare(dataclasses.replace(params, solver_method="eig"), device="cuda")
     vs_eig = _max_diff(named, ref, [k for k in ref if k != "state_norm"])
@@ -1387,13 +1398,13 @@ def labframe_and_cli(lab_oracle, expm_run: dict, tmp: str) -> dict:
     import numpy as np
 
     from quantumsimulations_tpu_torch.cli.simulate import main as simulate_main
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.labframe import simulate_lab_frame
 
-    reset_launch_counts()
-    (t, lab), wall = timed(simulate_lab_frame, labframe_params(), atol=1e-12, rtol=1e-11,
-                           device="cuda")
-    launches = dict(launch_counts)
+    with counting() as tr:
+        (t, lab), wall = timed(simulate_lab_frame, labframe_params(), atol=1e-12, rtol=1e-11,
+                               device="cuda")
+    launches = kernel_launches(tr)
     want, o_sec, _ = oracle_result(*lab_oracle, "lab frame")
     vs_oracle = float(np.abs(lab["Iz_sea"] - want).max())
     norm_dev = float(np.abs(lab["state_norm"] - 1.0).max())
@@ -1430,7 +1441,7 @@ def ozaki_n12(ext_rows, peaks) -> dict:
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
     from quantumsimulations_tpu_torch.dynamics.expm_propagator import expm_propagate_traces
     from quantumsimulations_tpu_torch.dynamics.observables import assemble_traces
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.dipolar import build_model
     from quantumsimulations_tpu_torch.ops.extprec import N_LIMBS
     from quantumsimulations_tpu_torch.utils.profiling import StageTimer
@@ -1438,9 +1449,8 @@ def ozaki_n12(ext_rows, peaks) -> dict:
     params = dataclasses.replace(n12_params(N12_STEPS), solver_method="expm")
     timer = StageTimer(device=torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     (t, named), wall = timed(simulate_rare, params, device="cuda", timer=timer)
-    launches = dict(launch_counts)
+    launches = kernel_launches(timer)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stages = timer.as_dict()
     if "squarings" not in stages:
@@ -1794,7 +1804,7 @@ def g1_sharded_sweeps(tmp: str, mesh, tr64: dict, tr32: dict, grid_dirs: dict) -
 
     import quantumsimulations_tpu_torch.cli.sweep as cli_sweep
     from quantumsimulations_tpu_torch.cli.sweep2d import main as sweep2d_main
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
 
     out = {}
     real = cli_sweep.run_sweep_sea_detuning
@@ -1802,9 +1812,9 @@ def g1_sharded_sweeps(tmp: str, mesh, tr64: dict, tr32: dict, grid_dirs: dict) -
     try:
         for solver, ref, atol in (("eig", tr64, G1_EIG_ATOL), ("eig32", tr32, G1_EIG32_ATOL)):
             d = os.path.join(tmp, f"g1_{solver}")
-            reset_launch_counts()
-            run = production_sweep(solver, d)
-            run["launches"] = dict(launch_counts)
+            with counting() as tr:
+                run = production_sweep(solver, d)
+            run["launches"] = kernel_launches(tr)
             diff = _traces_diff(load_traces(d), ref)
             if not diff <= atol:
                 raise AssertionError(f"G1 sharded {solver} vs unsharded: {diff:.3e} > {atol:g}")
@@ -1883,23 +1893,29 @@ def g2_state_sharded(mesh, kry_rows) -> dict:
 
 def g3_cheb_sharded(mesh, model, lam: float, f64_rows) -> dict:
     """G3: ``chebyshev_step_traces_sharded`` (the ext limb domain with one
-    int32 all_reduce per apply) at n13 (dim 16384, the production dt) over
-    G3_STEPS output steps, against phase 9's f64 rows."""
+    int32 all_reduce per apply, its limb products through the int8 GEMM
+    kernel) at n13 (dim 16384, the production dt) over G3_STEPS output
+    steps, against phase 9's f64 rows."""
     import numpy as np
     import torch
 
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.parallel.cheb_sharded import chebyshev_step_traces_sharded
 
     t0 = time.perf_counter()
-    rows = chebyshev_step_traces_sharded(
-        model.hamiltonian, model.psi0, N13_DT * np.arange(G3_STEPS), model.dims,
-        model.n_sea_effective, model.idx_rare, mesh=mesh, norm_bound=lam)
+    with counting() as tr:
+        rows = chebyshev_step_traces_sharded(
+            model.hamiltonian, model.psi0, N13_DT * np.arange(G3_STEPS), model.dims,
+            model.n_sea_effective, model.idx_rare, mesh=mesh, norm_bound=lam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = kernel_launches(tr)
+    if launches["int8_gemm"] <= 0:
+        raise AssertionError(f"G3: the ext tier's products did not launch int8_gemm: {launches}")
     vs = float(np.abs(rows[:7] - f64_rows[:7, :G3_STEPS]).max())
     if not vs <= G3_ATOL:
         raise AssertionError(f"G3 sharded cheb (ext) vs phase 9 f64: {vs:.3e} > {G3_ATOL:g}")
-    return {"wall_s": wall, "vs_phase9_f64": vs,
+    return {"wall_s": wall, "vs_phase9_f64": vs, "launches": launches,
             "energy_diff": float(abs(rows[7, 0] - f64_rows[7, 0])),
             "norm_dev": float(np.abs(rows[6] - 1.0).max())}
 
@@ -2092,8 +2108,8 @@ def phase_g(tmp: str, smi: str, tr64: dict, tr32: dict, grid_dirs: dict, kry_row
         say(f"[G3/5] chebyshev_step_traces_sharded n13 (dim 16384, production dt, {G3_STEPS} "
             f"output steps, ext limbs, one int32 all_reduce per apply): {g3['wall_s']:.2f} s; vs "
             f"phase 9 f64 {g3['vs_phase9_f64']:.2e} (bar {G3_ATOL:g}), energy diff "
-            f"{g3['energy_diff']:.1e} rad/s, max|norm-1| {g3['norm_dev']:.2e}; phase G3 "
-            f"{g3['phase_s']:.2f} s; {smi}")
+            f"{g3['energy_diff']:.1e} rad/s, max|norm-1| {g3['norm_dev']:.2e}; launches "
+            f"{dict(g3['launches'])}; phase G3 {g3['phase_s']:.2f} s; {smi}")
         t0 = time.perf_counter()
         g4 = out["G4"] = g4_expm_sharded(mesh, ext_rows, ozaki_norm_dev)
         g4["wall_s"] = time.perf_counter() - t0
@@ -2140,7 +2156,7 @@ def main() -> int:
     from quantumsimulations_tpu_torch.dynamics.chebyshev import chebyshev_coefficients
     from quantumsimulations_tpu_torch.dynamics.eig_propagator import TRACE_ROWS
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.kernels._build import build_all
     from quantumsimulations_tpu_torch.models.dipolar import build_model
     from quantumsimulations_tpu_torch.ops.split_apply import split_operator
@@ -2210,10 +2226,10 @@ def main() -> int:
     say(f"      built {EXT_OBS_SIMT_SRC} (kernel 3's SIMT design, for phase 5) in {simt_s:.2f} s")
     launches_16384 = 0  # the dim-16384 path's launches in this phase
     for i, shape in enumerate(EXT_OBS_SHAPES):
-        before = launch_counts["ext_obs_diagonals_int8"]
-        r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
+        with counting() as tr:
+            r = obs[shape] = check_ext_obs(shape, peaks, seed=20 + i, simt=simt)
         if shape[1] == 16384:
-            launches_16384 += launch_counts["ext_obs_diagonals_int8"] - before
+            launches_16384 += kernel_launches(tr)["ext_obs"]
         say(f"[5/20] ext_obs_diagonals_int8 {shape}: equal to plain bit for bit; device ms per "
             f"call: kernel {r['ms']:.4f}, SIMT design {r['simt_ms']:.4f} (same call, in turns: "
             f"{r['ms_turns']}, {r['simt_ms_turns']}); eager call {r['call_ms']:.4f} ms, plain "
@@ -2261,9 +2277,9 @@ def main() -> int:
     try:
         dir64, dir32 = os.path.join(tmp, "eig"), os.path.join(tmp, "eig32")
 
-        reset_launch_counts()
-        run64 = production_sweep("eig", dir64)
-        launches_eig = dict(launch_counts)
+        with counting() as tr:
+            run64 = production_sweep("eig", dir64)
+        launches_eig = kernel_launches(tr)
         tr64 = load_traces(dir64)
         norm_dev = max(float(np.abs(t["state_norm"] - 1.0).max()) for t in tr64.values())
         if not norm_dev < 1e-12:
@@ -2278,9 +2294,9 @@ def main() -> int:
             f"{_split(run64)}; max|norm-1| {norm_dev:.2e}; Iz_sea vs longdouble oracle "
             f"{oracle_err:.2e}; launches {launches_eig}")
 
-        reset_launch_counts()
-        run32 = production_sweep("eig32", dir32)
-        launches_eig32 = dict(launch_counts)
+        with counting() as tr:
+            run32 = production_sweep("eig32", dir32)
+        launches_eig32 = kernel_launches(tr)
         if launches_eig32["cmatmul_f32"] <= 0:
             raise AssertionError("eig32 sweep did not launch cmatmul_f32")
         tr32 = load_traces(dir32)
@@ -2299,12 +2315,12 @@ def main() -> int:
         # ---- n13, the default tier through the user entry point ----
         T = N13_STEPS
         params = n13_params(T)
-        reset_launch_counts()
         t0 = time.perf_counter()
-        t_sim, named = simulate_rare(params, device="cuda")
+        with counting() as tr:
+            t_sim, named = simulate_rare(params, device="cuda")
         torch.cuda.synchronize()
         sim_wall = time.perf_counter() - t0
-        launches_sim = dict(launch_counts)
+        launches_sim = kernel_launches(tr)
         rows_sim = np.stack([named[k] for k in TRACE_ROWS[:7]])
         if not np.allclose(np.diff(t_sim), N13_DT, rtol=1e-9, atol=0.0):
             raise AssertionError("n13: simulate_rare ran another time grid")
@@ -2447,9 +2463,9 @@ def main() -> int:
             f"steps/s, {lt['applies_per_s']:.1f} applies/s, {lt['kernels_per_apply']} device "
             f"kernels per apply (torch.profiler); vs f64 {lt['vs_f64']:.2e} (bound "
             f"{LIMB_ATOL:g}); launches {lt['launches']}")
-        reset_launch_counts()
-        grid = grid2d(tmp, tr64)
-        grid["launches"] = dict(launch_counts)
+        with counting() as tr:
+            grid = grid2d(tmp, tr64)
+        grid["launches"] = kernel_launches(tr)
         split = "; ".join(f"{k} {r['wall_s']:.2f} s {_split(r)}" for k, r in grid["rows"].items())
         say(f"[19/20] F. 2D grid (sweep2d CLI defaults: 3 rows x 39 sims, dim 128, 20000 steps, "
             f"uncut): {grid['wall_s']:.2f} s wall; rows {split}; 3 row directories; 50 kHz row "
@@ -2536,7 +2552,7 @@ def main() -> int:
             "route": "cuda",
             "source": "quantumsimulations_tpu_torch/csrc/ext_obs_diagonals.cu",
             "replaces": "quantumsimulations_tpu/ops/pallas_kernels.py:200",
-            "launches": n12["launches"]["ext_obs_diagonals_int8"],
+            "launches": n12["launches"]["ext_obs"],
             "max_abs_err": max(r["max_abs_err"] for k, r in obs.items() if k[1] <= 8192),
             "ms": at_path["ms"],
             "kernel_ms": at_path["ms"],

@@ -1,20 +1,18 @@
-"""ext_obs_diagonals_int8 on the card: the tensor-core design beside the two
-candidates it was chosen from.
+"""ext_obs_diagonals_int8 on the card: the tensor-core design beside the
+SIMT design it replaced.
 
-Builds, one nvcc each and all at once (ptxas register and spill report):
+Builds, one nvcc each and both at once (ptxas register and spill report):
   * the port's kernel, quantumsimulations_tpu_torch/csrc/ext_obs_diagonals.cu
     (int8 mma Grams, one column per block, a cluster stages its columns);
   * the SIMT design it replaced, experiments/torch_ext_obs_simt.cu (one
-    int32 multiply-add per limb-pair product; a block per (128 columns, site));
-  * candidate (a), experiments/torch_ext_obs_dp4a.cu (the SIMT design with
-    four rows packed per int32 and `__dp4a`).
+    int32 multiply-add per limb-pair product; a block per (128 columns, site)).
 Holds the port's kernel against the plain PyTorch version bit for bit at
 n_sites 1-13 (T 33 and 32: byte and TMA staging), at ragged T (1, 130, 2049), at n_diag < 11 with
 L = n_diag and at every limb +-33, with two calls equal and one launch per
-call; holds both candidates against it at the path's shape.  Then times all
-three at (15, 8192, 1024) and at the n12 path's (15, 8192, 20480), in turns
-(device time per call from a CUDA-graph replay, chip_smoke.graph_ms; the
-eager call for the port's kernel).
+call (``ext_obs.launches`` of a tracer); holds the SIMT design against it at
+the path's shape.  Then times both at (15, 8192, 1024) and at the n12
+path's (15, 8192, 20480), in turns (device time per call from a CUDA-graph
+replay, chip_smoke.graph_ms; the eager call for the port's kernel).
 
     python3 experiments/torch_ext_obs_probe.py
 
@@ -33,10 +31,11 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from chip_smoke import cuda_ms, graph_ms  # noqa: E402
-from quantumsimulations_tpu_torch.kernels import _build, launch_counts  # noqa: E402
+from quantumsimulations_tpu_torch.kernels import _build, launches  # noqa: E402
 from quantumsimulations_tpu_torch.ops import ext_obs as eo  # noqa: E402
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing  # noqa: E402
 
-CANDIDATES = {"simt": "torch_ext_obs_simt.cu", "dp4a": "torch_ext_obs_dp4a.cu"}
+CANDIDATES = {"simt": "torch_ext_obs_simt.cu"}
 PATH = (15, 8192, 20480)
 
 
@@ -89,7 +88,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(2) as pool:
         new_f = pool.submit(_build.build, "ext_obs_diagonals", ("-Xptxas", "-v"))
         others = {k: pool.submit(build_other, k) for k in CANDIDATES}
         print("port ptxas:", *ptxas(new_f.result()), sep="\n  ", flush=True)
@@ -111,11 +110,12 @@ def main() -> int:
     for L, dim, T, nd, extreme in cases:
         S_re, S_im = limbs((L, dim, T), gen, extreme), limbs((L, dim, T), gen, extreme)
         jj, ii = pairs(nd)
-        before = launch_counts["ext_obs_diagonals_int8"]
-        got = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
-        again = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
+        timer = StageTimer()
+        with tracing(timer):
+            got = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
+            again = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
         torch.cuda.synchronize()
-        n_launch = launch_counts["ext_obs_diagonals_int8"] - before
+        n_launch = launches(timer)["ext_obs"]
         want = eo.ext_obs_diagonals_plain(S_re, S_im, jj, ii, nd)
         equal, same = torch.equal(got, want), torch.equal(got, again)
         ok &= equal and same and n_launch == 2
@@ -135,10 +135,9 @@ def main() -> int:
             same = torch.equal(call(S_re, S_im, 11), ref)
             ok &= same
             print(f"{shape}: {k} equal to the port's kernel: {same}", flush=True)
-        fns = {"simt": lambda: calls["simt"](S_re, S_im, 11), "port": port,
-               "dp4a": lambda: calls["dp4a"](S_re, S_im, 11)}
+        fns = {"simt": lambda: calls["simt"](S_re, S_im, 11), "port": port}
         times = {k: [] for k in fns}
-        for k in ("simt", "port", "dp4a", "dp4a", "port", "simt"):
+        for k in ("simt", "port", "port", "simt"):
             times[k].append(graph_ms(fns[k], n=5 if shape == PATH else 10, reps=3))
         line = ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in vs)}" for k, vs in times.items())
         print(f"{shape}: device ms per call (graph, in turns): {line}; port eager "

@@ -77,12 +77,9 @@ def main() -> int:
 
     def gemms():
         for s in range(L + ep.EXT_GUARD):
-            j0, j1 = max(0, s - L + 1), min(s + 1, L)
-            ka = slice(j0 * D, j1 * D)
-            kb = slice((L - 1 - s + j0) * D, (L - 1 - s + j1) * D)
-            ep.int_mm(left.re[:, ka], r[0][:, kb].t())
-            ep.int_mm(left.im[:, ka], r[1][:, kb].t())
-            ep.int_mm(left.sum[:, ka], r[2][:, kb].t())
+            ep.diagonal_mm(left.re, r[0], L, s)
+            ep.diagonal_mm(left.im, r[1], L, s)
+            ep.diagonal_mm(left.sum, r[2], L, s)
 
     res["51 int8 GEMMs of one panel"] = cuda_ms(gemms, reps=3)
     d = torch.randint(-2**20, 2**20, (L + 2, D, P), generator=gen, device="cuda", dtype=torch.int32)

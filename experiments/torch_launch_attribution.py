@@ -21,7 +21,8 @@ turns.  Prints, and writes as JSON to ``--out`` where given:
   * the digit epilogue's device seconds under the ``ext_carry`` span
     (``ops/ext_carry.py``), the program's ``ext_carry.calls`` (per stage) and
     ``ext_carry.bytes``, its roofline (those bytes over the card's HBM rate,
-    over its seconds), the launches ``launch_counts["ext_carry"]`` counted,
+    over its seconds), the launches each kernel counted (``ext_carry.launches``
+    and the rest, ``kernels.launches``),
     and the limb arithmetic in all (``ext_carry_s`` + ``limb_elementwise_s``);
   * the observables kernel's device seconds under the ``ext_obs`` span, the
     program's ``ext_obs.columns`` and ``ext_obs.bytes``, and its roofline
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
     import reference
     import traffic as gen
     from quantumsimulations_tpu_torch.dynamics.evolve import simulate_rare
-    from quantumsimulations_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches as kernel_launches
     from quantumsimulations_tpu_torch.models.params import DipolarRareParams
     from quantumsimulations_tpu_torch.utils.profiling import StageTimer
 
@@ -116,13 +117,12 @@ def main(argv=None) -> int:
 
     timer = StageTimer(device=torch.device("cuda"), memory=True)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    reset_launch_counts()
     prof.start()
     w0 = time.time_ns()
     traced_wall = evolve(record, timer)
     w1 = time.time_ns()
     prof.stop()
-    launched = dict(launch_counts)
+    launched = dict(kernel_launches(timer))
 
     p0 = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
@@ -197,7 +197,7 @@ def main(argv=None) -> int:
         "ext_carry_roofline": (100.0 * carry_bytes / peaks["hbm_bytes_per_s"] / carry_s
                                if carry_s else None),
         "limb_arithmetic_s": carry_s + limb_s,
-        "launch_counts": launched,
+        "launches": launched,
         "model_build_s": timer.stages.get("build_model"),
         "ext_obs_s": obs_s,
         "ext_obs.columns": sum(c.get("ext_obs.columns", 0) for c in timer.counters.values()),

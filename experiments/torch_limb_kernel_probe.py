@@ -16,7 +16,7 @@ import os, sys, time, json, statistics
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch, numpy as np
 from quantumsimulations_tpu_torch.kernels._build import build_all
-from quantumsimulations_tpu_torch.kernels import launch_counts
+from quantumsimulations_tpu_torch.kernels import launches
 t0 = time.perf_counter()
 res = build_all(("limb_matmul_canon", "cmatmul_f32"), extra_flags=("-Xptxas", "-v"))
 for k, (out, sec) in res.items():
@@ -51,7 +51,7 @@ from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.analysis.metrics import f1R_for_resonance
 from quantumsimulations_tpu_torch.dynamics import cheb_step as cs
-from quantumsimulations_tpu_torch.utils.profiling import StageTimer
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 gs, gr = 8.1812e7, 6.976e7; B0=3.0; fAz=gs*B0/(2*np.pi); f1A=5e4; f1R=f1R_for_resonance(f1A,f1A,0.0)
 def params(n):
     return DipolarRareParams(n_sea=n, gamma_sea=gs, gamma_rare=gr, B0_sea=B0, B0_rare=B0, B1_sea=2*np.pi*f1A/gs,
@@ -62,8 +62,8 @@ t0=time.perf_counter(); m = build_model(params(13)); print("model", time.perf_co
 dt = 30/19999
 for arith, T in (("f64", 2), ("extp", 1)):
     tm = StageTimer(device=torch.device("cuda"))
-    for k in launch_counts: launch_counts[k]=0
     t0=time.perf_counter()
-    rows = cs.chebyshev_step_traces(m.hamiltonian, m.psi0, dt*np.arange(T), m.dims, m.n_sea_effective, m.idx_rare,
-        arithmetic=arith, device="cuda", timer=tm)
-    print(arith, T, time.perf_counter()-t0, tm.as_dict(), dict(launch_counts), rows[:, -1].tolist(), flush=True)
+    with tracing(tm):
+        rows = cs.chebyshev_step_traces(m.hamiltonian, m.psi0, dt*np.arange(T), m.dims, m.n_sea_effective, m.idx_rare,
+            arithmetic=arith, device="cuda", timer=tm)
+    print(arith, T, time.perf_counter()-t0, tm.as_dict(), dict(launches(tm)), rows[:, -1].tolist(), flush=True)

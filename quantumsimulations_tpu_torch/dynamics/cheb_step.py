@@ -19,8 +19,9 @@ holding both planes.  Arithmetic tiers (``arithmetic=``):
   * ``"f64"`` — the float64 split apply (ops/split_apply.py, cuBLAS DGEMM on
     the card); the default on ``cuda`` and ``cpu``, as the JAX package's
     default is ``"f64"`` on its ``gpu`` and ``cpu`` backends;
-  * ``"ext"`` — the recurrence kept in the fixed-grid limb domain, product
-    digits from exact float64 matmuls (ops/split_apply_ext.py);
+  * ``"ext"`` — the recurrence kept in the fixed-grid limb domain, each
+    product digit one exact int8 GEMM (ops/split_apply_ext.py,
+    ``ops/extprec.py::diagonal_mm``: the int8 GEMM kernel on the card);
   * ``"extp"`` — the same limb domain with every product through the
     hand-written CUDA kernel ``limb_matmul_canon`` (ops/limb_kernels.py);
   * ``"limb"`` — the float64 recurrence with every apply product an exact

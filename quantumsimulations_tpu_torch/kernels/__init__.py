@@ -1,19 +1,27 @@
-"""Hand-written CUDA kernels of the port: build, load, and launch counts.
+"""Hand-written CUDA kernels of the port: build and load (``_build.py``,
+whose ``SOURCES`` lists them), and the launches a tracer counted.
 
-``launch_counts`` holds one plain integer per kernel wrapper.  A wrapper adds
-one where it launches its kernel and nowhere else, so a run can show that its
-main path really went through the kernel (``chip_smoke.py`` zeroes the counts
-before the path and reads them after).
+A kernel's wrapper counts each launch, on the card only, in the active
+tracer (``utils/profiling.py::count``) as ``<kernel>.launches`` (e.g.
+``ext_carry.launches``); the int8 GEMM counts the variant it launched,
+``int8_gemm.wide`` or ``int8_gemm.narrow``.  A run shows that its path went
+through the kernels by running under a ``StageTimer`` made the active tracer
+(``profiling.tracing``, or ``simulate_rare(timer=)``, whose timer takes the
+counts of its evolution) and reading :func:`launches` of it.
 """
 
 from __future__ import annotations
 
-launch_counts: dict[str, int] = {
-    "cmatmul_f32": 0, "limb_matmul_canon": 0, "ext_obs_diagonals_int8": 0,
-    "z_expectations_f32": 0, "int8_gemm": 0, "ext_carry": 0,
-}
+from collections import Counter
 
 
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+def launches(timer) -> Counter:
+    """Launches per kernel that the ``StageTimer`` ``timer`` counted, summed
+    over its stages (a kernel it did not count reads 0)."""
+    out: Counter = Counter()
+    for counters in timer.counters.values():
+        for name, n in counters.items():
+            kernel, _, what = name.rpartition(".")
+            if what == "launches" or (kernel == "int8_gemm" and what in ("wide", "narrow")):
+                out[kernel] += n
+    return out

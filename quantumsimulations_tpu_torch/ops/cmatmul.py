@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..kernels import launch_counts
+from ..utils.profiling import count
 
 _INT_MAX = 2**31 - 1
 _GRID_Z_MAX = 65535
@@ -91,7 +91,7 @@ def _launch(ar, ai, br, bi) -> tuple[torch.Tensor, torch.Tensor]:
             )
         if rc != 0:
             raise RuntimeError(f"cmatmul_f32 kernel launch failed with CUDA error {rc}")
-        launch_counts["cmatmul_f32"] += 1
+        count("cmatmul_f32.launches", 1)
     if not batched:
         cr, ci = cr[0], ci[0]
     return cr, ci

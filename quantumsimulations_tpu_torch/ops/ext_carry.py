@@ -25,7 +25,8 @@ Under an active tracer (``utils/profiling.py``) each call is a launch span
 ``ext_carry`` and the innermost open stage counts ``ext_carry.calls`` and
 ``ext_carry.bytes``, the least HBM bytes of the call: the panel form reads 3 S
 int32 digits and writes 2 L int8 limbs per element, the Horner form reads
-p's and a's L limbs and writes L per column.
+p's and a's L limbs and writes L per column.  On the card it also counts
+``ext_carry.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ import ctypes
 import numpy as np
 import torch
 
-from ..kernels import launch_counts
 from ..utils.profiling import count, launch_span
 from .limb_kernels import carry_digits
 
@@ -199,7 +199,7 @@ def _launch_panel(ws, c_re, c_im, p0: int, S: int, M: int, N: int, L: int) -> No
                                         c_re.shape[2], p0, _stream(ws.device))
     if rc != 0:
         raise RuntimeError(f"ext_carry_panel kernel launch failed with CUDA error {rc}")
-    launch_counts["ext_carry"] += 1
+    count("ext_carry.launches", 1)
 
 
 def _launch_axpy(a, p, cl) -> torch.Tensor:
@@ -220,5 +220,5 @@ def _launch_axpy(a, p, cl) -> torch.Tensor:
                                  c.ctypes.data, len(c), _stream(a.device))
     if rc != 0:
         raise RuntimeError(f"ext_axpy kernel launch failed with CUDA error {rc}")
-    launch_counts["ext_carry"] += 1
+    count("ext_carry.launches", 1)
     return out

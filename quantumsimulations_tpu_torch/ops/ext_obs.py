@@ -35,7 +35,8 @@ tables and larger dims.
 Under an active tracer (``utils/profiling.py``) each call is a launch span
 ``ext_obs`` and the innermost open stage counts ``ext_obs.columns`` (T) and
 ``ext_obs.bytes``, the least HBM bytes of the call: the n_diag limb planes
-of both stacks read once, the (n_diag, R, T) int32 sums written once.
+of both stacks read once, the (n_diag, R, T) int32 sums written once; on
+the card it also counts ``ext_obs.launches``.
 
 Parameters kept for call-site compatibility with the JAX package:
 ``t_tile`` (a no-op: the CUDA kernel masks a ragged T, so T need not be a
@@ -49,7 +50,6 @@ import ctypes
 
 import torch
 
-from ..kernels import launch_counts
 from ..utils.profiling import count, launch_span
 
 #: largest n_diag the CUDA kernel is compiled for (the JAX package's _EXT_OBS_Q)
@@ -159,7 +159,7 @@ def _launch(S_re, S_im, n_diag: int, L: int, dim: int, T: int, n_sites: int, R: 
                        L, dim, T, n_sites, R, n_diag, stream)
     if rc != 0:
         raise RuntimeError(f"ext_obs_diagonals kernel launch failed with CUDA error {rc}")
-    launch_counts["ext_obs_diagonals_int8"] += 1
+    count("ext_obs.launches", 1)
     return out
 
 

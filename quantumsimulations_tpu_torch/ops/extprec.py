@@ -18,7 +18,10 @@ Hopper int8 GEMM ``csrc/int8_gemm.cu`` (``ops/int8_gemm.py``), on the CPU
 side by side along K, so each diagonal is one GEMM per Karatsuba term: the
 left operand is the limb stack concatenated along K (:class:`ExtLeft`), the
 right operand the limb stack in reversed limb order, so that the pairs
-(j, s - j) of diagonal s are one contiguous K range of both.  Each limb
+(j, s - j) of diagonal s are one contiguous K range of both
+(:func:`diagonal_mm`, which every exact limb product of the port uses: the
+ext chain, the Ozaki products, the ``limb`` and ``ext`` tiers of
+``cheb_step``).  Each limb
 takes a whole number of 16-byte rows of K (zeros after a ragged K, which
 change no sum), so every GEMM operand starts and strides on 16 bytes, as
 the kernel reads them.  Int32 sums are exact in any order (headroom
@@ -242,9 +245,8 @@ def ext_left(are: torch.Tensor, aim: torch.Tensor) -> ExtLeft:
 def _right_rev(b: torch.Tensor) -> torch.Tensor:
     """(L, K, N) limb stack -> (N, L * Kw) int8, limbs in REVERSED order:
     limb i at columns [(L-1-i)*Kw, (L-1-i)*Kw + K), zeros after it (Kw =
-    :func:`_whole_rows` (K)).  Its transpose is the (L*Kw, N) right operand
-    whose K range [(L-1-s+j0)*Kw, (L-1-s+j1)*Kw) pairs limb s - j with limb
-    j of the left operand (:func:`_cat_k`) for j0 <= j < j1.
+    :func:`_whole_rows` (K)), so that a diagonal's limb pairs with a
+    :func:`_cat_k` operand are one K range of both (:func:`diagonal_mm`).
 
     The copy must be K-contiguous: a view of the permuted stack (which
     ``reshape`` would return, the limb and K axes merging) is
@@ -254,6 +256,22 @@ def _right_rev(b: torch.Tensor) -> torch.Tensor:
     if kw != K:
         b = torch.nn.functional.pad(b, (0, 0, 0, kw - K))
     return b.flip(0).permute(2, 0, 1).contiguous().view(N, L * kw)
+
+
+def diagonal_mm(left: torch.Tensor, right_rev: torch.Tensor, L: int, s: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Digit s of the product of two L-limb stacks, before any carry: the
+    sum over the limb pairs (j, s - j), j0 <= j < j1, as ONE :func:`int_mm`
+    over their K range.  ``left`` is a :func:`_cat_k` operand (M, L * Kw),
+    ``right_rev`` a :func:`_right_rev` operand (N, L * Kw): limb j of the
+    left and limb s - j of the right both sit at K block j - j0 of the
+    range.  Int32 sums are exact in any order; the callers assert their
+    headroom.  ``out`` as for :func:`int_mm`."""
+    kw = left.shape[1] // L
+    j0, j1 = max(0, s - L + 1), min(s + 1, L)
+    r0 = L - 1 - s  # right_rev's block of limb s - j is r0 + j
+    return int_mm(left[:, j0 * kw: j1 * kw],
+                  right_rev[:, (r0 + j0) * kw: (r0 + j1) * kw].t(), out=out)
 
 
 def _ext_workspace(left: ExtLeft, N: int, device) -> torch.Tensor:
@@ -277,19 +295,16 @@ def _ext_cpanel_into(left: ExtLeft, b_re, b_im, ws: torch.Tensor, c_re, c_im, p0
     the workspace; EXT_GUARD extra diagonals below the last kept limb feed
     carries upward and are then dropped, as in the JAX package.  One
     :func:`~.ext_carry.ext_carry_panel` forms re and im and carries both."""
-    L, K = left.L, _whole_rows(left.K)
+    L = left.L
     N = b_re.shape[2]
     M = left.re.shape[0]
     S = L + EXT_GUARD
     d = ws[:3 * S * M * N].view(3, S, M, N)
     r_re, r_im, r_sum = _right_rev(b_re), _right_rev(b_im), _right_rev(b_re + b_im)
     for s in range(S):
-        j0, j1 = max(0, s - L + 1), min(s + 1, L)
-        ka = slice(j0 * K, j1 * K)
-        kb = slice((L - 1 - s + j0) * K, (L - 1 - s + j1) * K)
-        int_mm(left.re[:, ka], r_re[:, kb].t(), out=d[0, s])
-        int_mm(left.im[:, ka], r_im[:, kb].t(), out=d[1, s])
-        int_mm(left.sum[:, ka], r_sum[:, kb].t(), out=d[2, s])
+        diagonal_mm(left.re, r_re, L, s, out=d[0, s])
+        diagonal_mm(left.im, r_im, L, s, out=d[1, s])
+        diagonal_mm(left.sum, r_sum, L, s, out=d[2, s])
     ext_carry_panel(d, c_re, c_im, p0)
 
 
@@ -494,10 +509,8 @@ def ext_split_upload_coo_pair_host(
 # library's ``log`` and ``exp`` (which XLA's CPU backend matches on every
 # exponent a matrix can have), so the limbs, the scale and every product
 # equal the JAX package's on its CPU backend.  The digit sums are exact in
-# any order, so the diagonal's limb pairs run as one ``int_mm`` over a
-# concatenated K (the left operand's limbs side by side, the right
-# operand's in reversed limb order and K-contiguous, each limb in whole
-# 16-byte rows, as :func:`_ext_cpanel_product` lays them out).
+# any order, so each diagonal's limb pairs run as one :func:`diagonal_mm`,
+# as in the ext chain.
 #
 # TPU workarounds that are no-ops here: the JAX package's ``_SYNC_ELEMS``
 # and the ``fetch_sync`` between the four real products of
@@ -575,12 +588,10 @@ def _accumulate_products(A, B, out_shape, n_limbs: int, limb_bits: int):
     ``_accumulate_products`` has: a few ulp of the result).  The callers
     multiply by the scales as the JAX package's compiled programs do
     (:func:`_scale_product`)."""
-    K = _whole_rows(A.shape[2])
-    left = _cat_k(A)  # (M, n*K): limb j at columns [j*K, (j+1)*K)
-    right = _right_rev(B)  # (N, n*K): limb i at columns [(n-1-i)*K, (n-i)*K)
+    left, right = _cat_k(A), _right_rev(B)
     out = torch.zeros(out_shape, dtype=torch.float64, device=A.device)
     for s in range(n_limbs - 1, -1, -1):
-        acc = int_mm(left[:, : (s + 1) * K], right[:, (n_limbs - 1 - s) * K:].t())
+        acc = diagonal_mm(left, right, n_limbs, s)
         out = out + acc.to(torch.float64) * _xla_exp2(float(-limb_bits * s))
     return out
 

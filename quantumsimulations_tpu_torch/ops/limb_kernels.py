@@ -35,7 +35,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels import launch_counts
+from ..utils.profiling import count
 
 GRID_GUARD = 2  # product digits feeding carries up the cascade (matches ext)
 #: limb count the CUDA kernel is compiled for (split_apply_ext.GRID_LIMBS)
@@ -75,11 +75,14 @@ def carry_digits(d: torch.Tensor, bits: int, L: int | None = None) -> torch.Tens
 def product_digits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Digit stack (L + GRID_GUARD, M, N) int32 of (limb a) @ (limb b), no carry.
 
-    Digit s is sum_j a[j] @ b[s - j], computed as ONE float64 matmul of the
-    pairs' limbs laid side by side along K.  Every partial sum is an integer
-    below 2^31, far under 2^53, so the float64 product is exact in any
-    order, on the CPU and on CUDA.  (An int8 GEMM would give the same
-    digits: ops/extprec.py::int_mm, the hand-written kernel on the card.)
+    The plain version of the limb kernel's digits, which
+    :func:`limb_matmul_canon_plain` and the tests hold the kernel against:
+    digit s is sum_j a[j] @ b[s - j], ONE float64 matmul of the pairs'
+    limbs laid side by side along K.  Every partial sum is an integer below
+    2^31, far under 2^53, so the float64 product is exact in any order.
+    The port's own limb products form their digits through
+    ``ops/extprec.py::diagonal_mm`` (int8 GEMMs), which equals this bit for
+    bit.
     """
     L, M, K = a.shape
     N = b.shape[2]
@@ -249,7 +252,7 @@ def _launch(a, b, bits: int, tm: int, transpose_out: bool) -> torch.Tensor:
                        None if counters is None else counters.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"limb_matmul_canon kernel launch failed with CUDA error {rc}")
-    launch_counts["limb_matmul_canon"] += 1
+    count("limb_matmul_canon.launches", 1)
     return out
 
 

@@ -20,10 +20,11 @@ limbs (j, i) lands exactly on digit j + i; 6-bit limbs x 10 = 60 bits
 
 Two tiers, the same numbers bit for bit as the JAX package's:
 
-  * ``make_ext_apply`` (tier ``ext``): the product digits come from
-    :func:`..limb_kernels.product_digits` (exact float64 matmuls, since
-    PyTorch has no integer matmul on CUDA) and are carried once after the
-    bucket sum, as the JAX package's XLA tier does.
+  * ``make_ext_apply`` (tier ``ext``): each product digit is one exact
+    int8 GEMM over its diagonal's limb pairs
+    (:func:`..extprec.diagonal_mm`, kernel ``csrc/int8_gemm.cu`` on the
+    card), and the digits are carried once after the bucket sum, as the
+    JAX package's XLA tier does.
   * ``make_ext_apply_pallas`` (tier ``extp``; the JAX name is kept): every
     product bucket goes through :func:`..limb_kernels.limb_matmul_canon`,
     the hand-written CUDA kernel on the card, with the cross relayout folded
@@ -57,7 +58,8 @@ import torch.distributed as dist
 
 from ..utils.device import resolve_device
 from .embed import OperatorSum
-from .limb_kernels import GRID_GUARD, carry_digits, limb_matmul_canon, product_digits
+from .extprec import _cat_k, _right_rev, diagonal_mm
+from .limb_kernels import GRID_GUARD, carry_digits, limb_matmul_canon
 from .split_apply import SplitOperator, cross_r_flat, left_blocks, right_blocks, split_operator
 
 GRID_BITS = 6
@@ -150,9 +152,15 @@ def _pairs(L: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 
 def _product_digits(a: torch.Tensor, b_st: torch.Tensor, L: int, K: int, bits: int) -> torch.Tensor:
-    """Digit stacks of (limb a) @ (limb b): (L+GUARD, M, N) int32, no carry."""
+    """Digit stacks of (limb a) @ (limb b): (L+GUARD, M, N) int32, no carry;
+    each digit one :func:`..extprec.diagonal_mm`."""
     assert K * (2 ** (2 * bits)) * L < 2**31, "i32 would overflow"
-    return product_digits(a, b_st)
+    left, right = _cat_k(a), _right_rev(b_st)
+    digits = torch.empty((L + GRID_GUARD, a.shape[1], b_st.shape[2]), dtype=torch.int32,
+                         device=a.device)
+    for s in range(L + GRID_GUARD):
+        diagonal_mm(left, right, L, s, out=digits[s])
+    return digits
 
 
 class ExtApply:

@@ -14,8 +14,8 @@ pad.
 
 On a CUDA tensor :func:`z_expectations_f32` launches the hand-written Hopper
 kernel ``csrc/z_expectations_f32.cu`` once (its header gives the design and
-the bound), on the grid of :func:`zexp_launch_plan`, and counts the launch in
-``kernels.launch_counts``; on a CPU tensor it runs
+the bound), on the grid of :func:`zexp_launch_plan`, and counts the launch
+(``z_expectations_f32.launches``, :mod:`..kernels`); on a CPU tensor it runs
 :func:`z_expectations_f32_plain`.  A CUDA tensor never takes the plain
 version: the kernel launches or the wrapper raises.  ``interpret`` is
 accepted for call-site compatibility and ignored (the tensors' device picks
@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels import launch_counts
+from ..utils.profiling import count
 from .embed import local_op
 
 #: most sites the CUDA kernel keeps in registers
@@ -275,7 +275,7 @@ def _launch(psi_re: torch.Tensor, psi_im: torch.Tensor, signs: torch.Tensor) -> 
                        psi_re.element_size(), signs.element_size(), stream)
     if rc != 0:
         raise RuntimeError(f"z_expectations_f32 kernel launch failed with CUDA error {rc}")
-    launch_counts["z_expectations_f32"] += 1
+    count("z_expectations_f32.launches", 1)
     return out
 
 

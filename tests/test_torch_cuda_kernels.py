@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (skip where there is no CUDA device).
 
-Every test here carries the ``requires_cuda`` marker.  This file imports
+Every test here carries the ``requires_cuda`` marker.  A test reads kernel
+launches from the tracer it ran under (``kernels.launches``; the ``tracer``
+fixture is a ``StageTimer`` made the active tracer).  This file imports
 neither JAX nor the JAX package, so it also runs on a GPU machine without
 JAX, from the repository root:
 
@@ -48,7 +50,7 @@ from quantumsimulations_tpu_torch.dynamics import chebyshev as tcheb
 from quantumsimulations_tpu_torch.dynamics import eig_propagator as teig
 from quantumsimulations_tpu_torch.dynamics import expm_propagator as tep
 from quantumsimulations_tpu_torch.dynamics import krylov as tkry
-from quantumsimulations_tpu_torch.kernels import launch_counts
+from quantumsimulations_tpu_torch.kernels import launches
 from quantumsimulations_tpu_torch.models.dipolar import build_model
 from quantumsimulations_tpu_torch.models.params import DipolarRareParams
 from quantumsimulations_tpu_torch.ops import cmatmul as cm
@@ -58,8 +60,18 @@ from quantumsimulations_tpu_torch.ops import extprec as ep
 from quantumsimulations_tpu_torch.ops import int8_gemm as ig
 from quantumsimulations_tpu_torch.ops import limb_kernels as lk
 from quantumsimulations_tpu_torch.ops import zexp
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 
 pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def tracer():
+    """A StageTimer, the active tracer for the test: ``launches(tracer)``
+    reads the kernel launches counted in it."""
+    timer = StageTimer()
+    with tracing(timer):
+        yield timer
 
 
 @pytest.fixture
@@ -75,22 +87,22 @@ def cuda_device():
     [(1, 128, 128, 128), (2, 64, 200, 96), (1, 300, 513, 130), (39, 128, 128, 1680),
      (1, 5, 1, 3), (2, 9, 7, 12), (1, 15, 9, 6), (1, 2048, 2048, 1024)],
 )
-def test_kernel_matches_plain(cuda_device, shape):
+def test_kernel_matches_plain(cuda_device, tracer, shape):
     B, M, K, N = shape
     gen = torch.Generator(device=cuda_device).manual_seed(B * M + N)
     ar, ai = (torch.randn(B, M, K, generator=gen, device=cuda_device) for _ in range(2))
     br, bi = (torch.randn(B, K, N, generator=gen, device=cuda_device) for _ in range(2))
-    before = launch_counts["cmatmul_f32"]
+    before = launches(tracer)["cmatmul_f32"]
     cr, ci = cm.cmatmul_f32(ar, ai, br, bi)
     torch.cuda.synchronize()
-    assert launch_counts["cmatmul_f32"] == before + 1
+    assert launches(tracer)["cmatmul_f32"] == before + 1
     pr, pi = cm.cmatmul_f32_plain(ar, ai, br, bi)
     scale = torch.maximum(pr.abs().max(), pi.abs().max())
     err = torch.maximum((cr - pr).abs().max(), (ci - pi).abs().max())
     assert float(err / scale) <= 1e-5
 
 
-def test_kernel_unbatched_ragged_and_empty(cuda_device):
+def test_kernel_unbatched_ragged_and_empty(cuda_device, tracer):
     ar, ai = (torch.randn(33, 17, device=cuda_device) for _ in range(2))
     br, bi = (torch.randn(17, 65, device=cuda_device) for _ in range(2))
     cr, ci = cm.cmatmul_f32(ar, ai, br, bi)
@@ -99,10 +111,10 @@ def test_kernel_unbatched_ragged_and_empty(cuda_device):
     scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
     assert float((cr - pr).abs().max()) <= 1e-5 * scale
     assert float((ci - pi).abs().max()) <= 1e-5 * scale
-    before = launch_counts["cmatmul_f32"]
+    before = launches(tracer)["cmatmul_f32"]
     er, ei = cm.cmatmul_f32(ar[:0], ai[:0], br, bi)
     assert er.shape == ei.shape == (0, 65)
-    assert launch_counts["cmatmul_f32"] == before  # nothing to launch
+    assert launches(tracer)["cmatmul_f32"] == before  # nothing to launch
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
@@ -115,7 +127,7 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
     assert cr.is_cuda
 
 
-def test_eig32_on_card_within_bound_of_f64(cuda_device):
+def test_eig32_on_card_within_bound_of_f64(cuda_device, tracer):
     kw = dict(
         n_sea=4, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
         B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
@@ -130,9 +142,9 @@ def test_eig32_on_card_within_bound_of_f64(cuda_device):
             m.idx_rare)
     rows64 = teig.eig_traces_assembled_batched(*args, device=cuda_device)
     cpu64 = teig.eig_traces_assembled_batched(*args, device="cpu")
-    before = launch_counts["cmatmul_f32"]
+    before = launches(tracer)["cmatmul_f32"]
     rows32 = teig.eig_traces_assembled_batched32(*args, device=cuda_device)
-    assert launch_counts["cmatmul_f32"] > before
+    assert launches(tracer)["cmatmul_f32"] > before
     assert np.abs(rows64[:, :7] - cpu64[:, :7]).max() <= 1e-10
     assert np.abs(rows32[:, :7] - rows64[:, :7]).max() <= 2e-4
     assert np.abs(rows64[:, 6] - 1.0).max() < 1e-12
@@ -160,14 +172,14 @@ def _limbs(shape, gen, device):
         (2048, 2048, 2048, None),  # large square, unsplit
     ],
 )
-def test_limb_kernel_matches_plain(cuda_device, M, K, N, tm):
+def test_limb_kernel_matches_plain(cuda_device, tracer, M, K, N, tm):
     gen = torch.Generator(device=cuda_device).manual_seed(M + 7 * K + 13 * N)
     a, b = _limbs((10, M, K), gen, cuda_device), _limbs((10, K, N), gen, cuda_device)
     kw = dict(tm=tm, transpose_out=True) if tm else {}
-    before = launch_counts["limb_matmul_canon"]
+    before = launches(tracer)["limb_matmul_canon"]
     out = lk.limb_matmul_canon(a, b, bits=6, **kw)
     torch.cuda.synchronize()
-    assert launch_counts["limb_matmul_canon"] == before + 1
+    assert launches(tracer)["limb_matmul_canon"] == before + 1
     assert torch.equal(out, lk.limb_matmul_canon_plain(a, b, 6, **kw))
 
 
@@ -232,7 +244,7 @@ def test_limb_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch
     assert lk.limb_matmul_canon(x, x, bits=6).is_cuda
 
 
-def test_extp_steps_on_card_within_bound_of_f64(cuda_device):
+def test_extp_steps_on_card_within_bound_of_f64(cuda_device, tracer):
     kw = dict(
         n_sea=9, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
         B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
@@ -244,9 +256,9 @@ def test_extp_steps_on_card_within_bound_of_f64(cuda_device):
     times = np.arange(2) * (30.0 / 19_999)
     args = (m.hamiltonian, m.psi0, times, m.dims, m.n_sea_effective, m.idx_rare)
     f64 = tcs.chebyshev_step_traces(*args, arithmetic="f64", device=cuda_device)
-    before = launch_counts["limb_matmul_canon"]
+    before = launches(tracer)["limb_matmul_canon"]
     extp = tcs.chebyshev_step_traces(*args, arithmetic="extp", device=cuda_device)
-    assert launch_counts["limb_matmul_canon"] > before
+    assert launches(tracer)["limb_matmul_canon"] > before
     assert np.abs(extp[:7] - f64[:7]).max() <= 1e-11
     assert np.abs(extp[6] - 1.0).max() < 1e-12
 
@@ -283,7 +295,7 @@ _EXT_CASES = (
 
 
 @pytest.mark.parametrize("L,dim,T,nd,extreme", _EXT_CASES)
-def test_ext_obs_kernel_matches_plain(cuda_device, L, dim, T, nd, extreme):
+def test_ext_obs_kernel_matches_plain(cuda_device, tracer, L, dim, T, nd, extreme):
     gen = torch.Generator(device=cuda_device).manual_seed(dim + T + nd)
     if extreme:
         S_re, S_im = ((torch.randint(0, 2, (L, dim, T), generator=gen, device=cuda_device) * 66 - 33)
@@ -291,10 +303,10 @@ def test_ext_obs_kernel_matches_plain(cuda_device, L, dim, T, nd, extreme):
     else:
         S_re, S_im = (_ext_limbs((L, dim, T), gen, cuda_device) for _ in range(2))
     jj, ii = _ext_pairs(nd)
-    before = launch_counts["ext_obs_diagonals_int8"]
+    before = launches(tracer)["ext_obs"]
     got = eo.ext_obs_diagonals_int8(S_re, S_im, jj, ii, nd)
     torch.cuda.synchronize()
-    assert launch_counts["ext_obs_diagonals_int8"] == before + 1
+    assert launches(tracer)["ext_obs"] == before + 1
     want = eo.ext_obs_diagonals_plain(S_re, S_im, jj, ii, nd)
     assert torch.equal(got, want)
 
@@ -308,24 +320,24 @@ def test_ext_obs_kernel_two_calls_equal_bits(cuda_device, shape):
     assert torch.equal(first, second)
 
 
-def test_ext_obs_kernel_counts_one_launch_per_call(cuda_device):
+def test_ext_obs_kernel_counts_one_launch_per_call(cuda_device, tracer):
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     shapes = [(15, 16, 33), (15, 4096, 48), (15, 16, 33)]
     stacks = [(_ext_limbs(s, gen, cuda_device), _ext_limbs(s, gen, cuda_device)) for s in shapes]
-    before = launch_counts["ext_obs_diagonals_int8"]
+    before = launches(tracer)["ext_obs"]
     for k, (S_re, S_im) in enumerate(stacks, start=1):
         eo.ext_obs_diagonals_int8(S_re, S_im, JJ, II, 11)
-        assert launch_counts["ext_obs_diagonals_int8"] == before + k
+        assert launches(tracer)["ext_obs"] == before + k
     torch.cuda.synchronize()
 
 
-def test_ext_obs_kernel_rejects_dims_above_8192(cuda_device):
+def test_ext_obs_kernel_rejects_dims_above_8192(cuda_device, tracer):
     # dim 16384 runs (two blocks a column); 32768 is past the kernel
     S = torch.zeros((11, 1 << 15, 2), dtype=torch.int8, device=cuda_device)
-    before = launch_counts["ext_obs_diagonals_int8"]
+    before = launches(tracer)["ext_obs"]
     with pytest.raises(ValueError, match="dim <= 16384"):
         eo.ext_obs_diagonals_int8(S, S, JJ, II, 11)
-    assert launch_counts["ext_obs_diagonals_int8"] == before
+    assert launches(tracer)["ext_obs"] == before
 
 
 def test_ext_obs_kernel_takes_only_the_full_pair_triangle(cuda_device):
@@ -385,7 +397,7 @@ def _karatsuba_outputs(M, N, gen, device, digits):
     (8192, 512, 8192, 7680, "headroom"), (16384, 512, 16384, 15872, "random"),
     (8192, 1, 1, 0, "random"), (8192, 2, 2, 0, "random"), (8192, 8, 8, 0, "random"),
     (8192, 256, 256, 0, "random"), (8192, 1000, 1003, 3, "random"), (7, 13, 40, 9, "ties")])
-def test_ext_carry_panel_matches_plain(cuda_device, M, N, n_total, p0, digits):
+def test_ext_carry_panel_matches_plain(cuda_device, tracer, M, N, n_total, p0, digits):
     """The panel form at the chain's panel (n12 and n13, p0 > 0), the
     doubling's narrow N, a ragged N at an odd offset: one launch, limbs equal
     to the plain version's bit for bit, the other columns untouched."""
@@ -394,30 +406,30 @@ def test_ext_carry_panel_matches_plain(cuda_device, M, N, n_total, p0, digits):
     c = [_ext_limbs((ep.EXT_LIMBS, M, n_total), gen, cuda_device) for _ in range(2)]
     want = [x.clone() for x in c]
     ec.ext_carry_panel_plain(ws, *want, p0)
-    before = launch_counts["ext_carry"]
+    before = launches(tracer)["ext_carry"]
     ec.ext_carry_panel(ws, *c, p0)
-    assert launch_counts["ext_carry"] == before + 1
+    assert launches(tracer)["ext_carry"] == before + 1
     for g, w in zip(c, want):
         assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("shape", [(15, 8192, 8192), (15, 16384, 16384), (15, 7, 9)])
-def test_ext_axpy_matches_plain(cuda_device, shape):
+def test_ext_axpy_matches_plain(cuda_device, tracer, shape):
     """The Horner form over dim^2 columns (n12, n13) and a ragged count: one
     launch per call, a + p c equal to the plain version's bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
     a, p = _ext_limbs(shape, gen, cuda_device), _ext_limbs(shape, gen, cuda_device)
     coeffs = ep.taylor_coeff_limbs(10)
     for k in (2, 3, 10):
-        before = launch_counts["ext_carry"]
+        before = launches(tracer)["ext_carry"]
         got = ec.ext_axpy_traced(a, p, coeffs[k])
-        assert launch_counts["ext_carry"] == before + 1
+        assert launches(tracer)["ext_carry"] == before + 1
         want = ec.ext_axpy_plain(a, p, coeffs[k])
         assert torch.equal(got, want)
         del got, want
 
 
-def test_ext_carry_cuda_tensors_never_take_the_plain_versions(cuda_device, monkeypatch):
+def test_ext_carry_cuda_tensors_never_take_the_plain_versions(cuda_device, tracer, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("plain version called for CUDA tensors")
 
@@ -428,20 +440,20 @@ def test_ext_carry_cuda_tensors_never_take_the_plain_versions(cuda_device, monke
     want_axpy = ep.ext_axpy_traced(ops[2], ops[3], cl)
     monkeypatch.setattr(ec, "ext_carry_panel_plain", refuse)
     monkeypatch.setattr(ec, "ext_axpy_plain", refuse)
-    before = launch_counts["ext_carry"]
+    before = launches(tracer)["ext_carry"]
     got = ep.ext_cmatmul(*[x.to(cuda_device) for x in ops], panel=16)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     got_axpy = ep.ext_axpy_traced(ops[2].to(cuda_device), ops[3].to(cuda_device), cl)
     assert torch.equal(got_axpy.cpu(), want_axpy)
-    assert launch_counts["ext_carry"] == before + 3 + 1  # three panels of 16, one axpy
+    assert launches(tracer)["ext_carry"] == before + 3 + 1  # three panels of 16, one axpy
 
 
-def test_ext_carry_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+def test_ext_carry_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device, tracer):
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     ws = _karatsuba_outputs(8, 4, gen, cuda_device, "random")
     c = [torch.zeros((15, 8, 4), dtype=torch.int8, device=cuda_device) for _ in range(2)]
-    before = launch_counts["ext_carry"]
+    before = launches(tracer)["ext_carry"]
     with pytest.raises(ValueError, match="compiled for 15 limbs"):
         ec.ext_carry_panel(ws[:, :16], c[0][:14], c[1][:14], 0)
     with pytest.raises(ValueError, match="contiguous"):
@@ -449,7 +461,7 @@ def test_ext_carry_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         ec.ext_carry_panel(ws, wide[0][:, :, :4], wide[1][:, :, :4], 0)
     with pytest.raises(ValueError, match="integers"):
         ec.ext_axpy_traced(c[0], c[1], [0.5] * 15)
-    assert launch_counts["ext_carry"] == before
+    assert launches(tracer)["ext_carry"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +490,10 @@ def _int_mm_ref(a, b, device):
 
 
 def _assert_gemm_equal(a, b, ref_device="cuda"):
-    before = launch_counts["int8_gemm"]
-    got = ig.int8_gemm(a, b)
-    assert launch_counts["int8_gemm"] == before + 1
+    timer = StageTimer()
+    with tracing(timer):
+        got = ig.int8_gemm(a, b)
+    assert launches(timer) == {"int8_gemm": 1}
     assert torch.equal(got.to(ref_device), _int_mm_ref(a, b, ref_device))
     return got
 
@@ -527,13 +540,13 @@ def test_int8_gemm_extreme_limbs_at_the_headroom(cuda_device, m, n):
     _assert_gemm_equal(a, b.t())
 
 
-def test_int8_gemm_two_calls_equal_one_launch_each(cuda_device):
+def test_int8_gemm_two_calls_equal_one_launch_each(cuda_device, tracer):
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     for n in (8, 256, 512):  # narrow and wide split K across blocks, wide at N 512 does not
         a, b = _ext_gemm_operands(8192, n, 8192, 15, 2, 7, gen, cuda_device)
-        before = launch_counts["int8_gemm"]
+        before = launches(tracer)["int8_gemm"]
         first, second = ig.int8_gemm(a, b), ig.int8_gemm(a, b)
-        assert launch_counts["int8_gemm"] == before + 2
+        assert launches(tracer)["int8_gemm"] == before + 2
         assert torch.equal(first, second)
 
 
@@ -550,9 +563,9 @@ def test_int8_gemm_cuda_tensors_never_reach_torch_int_mm(cuda_device, monkeypatc
         assert torch.equal(g.cpu(), w)
 
 
-def test_int8_gemm_wrapper_raises_on_other_layouts(cuda_device):
+def test_int8_gemm_wrapper_raises_on_other_layouts(cuda_device, tracer):
     a = torch.zeros((64, 64), dtype=torch.int8, device=cuda_device)
-    before = launch_counts["int8_gemm"]
+    before = launches(tracer)["int8_gemm"]
     with pytest.raises(ValueError, match="K-contiguous"):
         ig.int8_gemm(a, torch.zeros((64, 32), dtype=torch.int8, device=cuda_device))
     with pytest.raises(ValueError, match="16-byte"):
@@ -560,29 +573,25 @@ def test_int8_gemm_wrapper_raises_on_other_layouts(cuda_device):
                      torch.zeros((32, 48), dtype=torch.int8, device=cuda_device)[:, :40].t())
     with pytest.raises(ValueError, match="one device"):
         ig.int8_gemm(a, torch.zeros((32, 64), dtype=torch.int8).t())
-    assert launch_counts["int8_gemm"] == before
+    assert launches(tracer)["int8_gemm"] == before
 
 
 def test_int8_gemm_variant_counters_sum_to_calls(cuda_device):
-    from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
-
     gen = torch.Generator().manual_seed(12)
     a = [_ext_limbs((15, 128, 128), gen, "cpu").to(cuda_device) for _ in range(2)]
     s = [_ext_limbs((15, 128, n), gen, "cpu").to(cuda_device) for n in (4, 4, 96, 96)]
     timer = StageTimer()
-    before = launch_counts["int8_gemm"]
     with tracing(timer), timer.stage("doubling"):
         ep.ext_cmatmul(a[0], a[1], s[0], s[1])  # narrow
         ep.ext_cmatmul(a[0], a[1], s[2], s[3])  # wide
     c = timer.counters["doubling"]
     assert c["int8_gemm.narrow"] == c["int8_gemm.wide"] == 51
     assert c["int8_gemm.narrow"] + c["int8_gemm.wide"] == c["int8_gemm.calls"]
-    assert launch_counts["int8_gemm"] - before == c["int8_gemm.calls"]
+    assert launches(timer)["int8_gemm"] == c["int8_gemm.calls"]
+    assert launches(timer)["ext_carry"] == c["ext_carry.calls"] == 2
 
 
 def test_stage_memory_high_water_on_card(cuda_device):
-    from quantumsimulations_tpu_torch.utils.profiling import StageTimer
-
     timer = StageTimer(device=torch.device(cuda_device), memory=True)
     with timer.stage("outer"):
         with timer.stage("big"):
@@ -601,7 +610,7 @@ def test_stage_memory_high_water_on_card(cuda_device):
     assert "big" not in plain.counters  # off unless asked for
 
 
-def test_ext_route_on_card_equals_cpu(cuda_device):
+def test_ext_route_on_card_equals_cpu(cuda_device, tracer):
     kw = dict(
         n_sea=4, gamma_sea=8.1812e7, gamma_rare=6.976e7, B0_sea=3.0, B0_rare=3.0,
         B1_sea=2 * np.pi * 5e4 / 8.1812e7, B1_rare=2 * np.pi * 70710.678 / 6.976e7,
@@ -612,9 +621,9 @@ def test_ext_route_on_card_equals_cpu(cuda_device):
     m = build_model(DipolarRareParams(**kw))
     t = np.linspace(0.0, 0.0199, 200)
     args = (m.hamiltonian, m.psi0, t, m.dims, m.n_sea_effective, m.idx_rare)
-    before = launch_counts["ext_obs_diagonals_int8"]
+    before = launches(tracer)["ext_obs"]
     card = tep.expm_traces_assembled_ext(*args, block=128, device=cuda_device)
-    assert launch_counts["ext_obs_diagonals_int8"] > before
+    assert launches(tracer)["ext_obs"] > before
     cpu = tep.expm_traces_assembled_ext(*args, block=128, device="cpu")
     assert np.abs(card - cpu).max() <= 1e-13
     assert np.abs(card[6] - 1.0).max() < 1e-12
@@ -636,12 +645,12 @@ def _zexp_inputs(device, n, dim, T, dtype, sign_dtype=torch.float64, seed=None):
      (14, 16384, 33, torch.float64), (14, 16384, 2049, torch.float64),
      (1, 16, 21, torch.float64), (1, 16, 2049, torch.float32)],
 )
-def test_zexp_kernel_matches_plain(cuda_device, n, dim, T, dtype, sign_dtype):
+def test_zexp_kernel_matches_plain(cuda_device, tracer, n, dim, T, dtype, sign_dtype):
     re, im, signs = _zexp_inputs(cuda_device, n, dim, T, dtype, sign_dtype)
-    before = launch_counts["z_expectations_f32"]
+    before = launches(tracer)["z_expectations_f32"]
     got = zexp.z_expectations_f32(re, im, signs)
     torch.cuda.synchronize()
-    assert launch_counts["z_expectations_f32"] == before + 1
+    assert launches(tracer)["z_expectations_f32"] == before + 1
     want = zexp.z_expectations_f32_plain(re, im, signs)
     assert got.dtype == torch.float32 and got.shape == (n, T)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -668,16 +677,16 @@ def test_zexp_kernel_alternating_shapes_on_one_stream(cuda_device):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-def test_zexp_kernel_counts_one_launch_per_call(cuda_device):
+def test_zexp_kernel_counts_one_launch_per_call(cuda_device, tracer):
     args = _zexp_inputs(cuda_device, 14, 16384, 21, torch.float64)
-    before = launch_counts["z_expectations_f32"]
+    before = launches(tracer)["z_expectations_f32"]
     for _ in range(5):
         zexp.z_expectations_f32(*args)
     torch.cuda.synchronize()
-    assert launch_counts["z_expectations_f32"] == before + 5
+    assert launches(tracer)["z_expectations_f32"] == before + 5
     empty = zexp.z_expectations_f32(args[0][:, :0], args[1][:, :0], args[2])
     assert empty.shape == (14, 0)
-    assert launch_counts["z_expectations_f32"] == before + 5  # nothing to launch
+    assert launches(tracer)["z_expectations_f32"] == before + 5  # nothing to launch
 
 
 def test_zexp_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
@@ -877,7 +886,7 @@ def _sweep_batch(n: int):
             np.asarray([m.n_sea_effective for m in models]), models[0].idx_rare)
 
 
-def test_dp_sharded_sweep_on_card_equals_unsharded(nccl_mesh):
+def test_dp_sharded_sweep_on_card_equals_unsharded(nccl_mesh, tracer):
     """World size 1 over NCCL: the dp-sharded eig and eig32 rows equal the
     unsharded card rows bit for bit (dp = 1 gives the same batch and time
     chunks), and the eig32 run launches the f32 kernel."""
@@ -889,16 +898,17 @@ def test_dp_sharded_sweep_on_card_equals_unsharded(nccl_mesh):
     args = _sweep_batch(5)
     np.testing.assert_array_equal(eig_traces_assembled_sharded(*args, nccl_mesh),
                                   teig.eig_traces_assembled_batched(*args, device="cuda"))
-    before = launch_counts["cmatmul_f32"]
+    before = launches(tracer)["cmatmul_f32"]
     got32 = eig_traces_assembled_sharded32(*args, nccl_mesh)
-    assert launch_counts["cmatmul_f32"] > before
+    assert launches(tracer)["cmatmul_f32"] > before
     np.testing.assert_array_equal(got32,
                                   teig.eig_traces_assembled_batched32(*args, device="cuda"))
 
 
-def test_ext_apply_sharded_on_card_equals_single_card(nccl_mesh):
+def test_ext_apply_sharded_on_card_equals_single_card(nccl_mesh, tracer):
     """World size 1 over NCCL: the DR-sharded limb apply (its int32 digit
-    all_reduce included) equals the single-card ext apply bit for bit."""
+    all_reduce included) equals the single-card ext apply bit for bit, and
+    both form their digits through the int8 GEMM kernel."""
     from quantumsimulations_tpu_torch.ops import split_apply_ext as spx
 
     m = build_model(DipolarRareParams(**{**_SMALL, "n_sea": 5}))
@@ -910,3 +920,4 @@ def test_ext_apply_sharded_on_card_equals_single_card(nccl_mesh):
     psi = torch.randn(2, so.DL, so.DR, generator=gen, dtype=torch.float64)
     T = ops.split((psi / psi.norm()).to("cuda"))
     torch.testing.assert_close(sharded.stacked(T), single.stacked(T), rtol=0, atol=0)
+    assert launches(tracer)["int8_gemm"] > 0

@@ -22,7 +22,8 @@ from quantumsimulations_tpu.dynamics import expm_propagator as jep
 from quantumsimulations_tpu.ops import extprec as jx
 from quantumsimulations_tpu.ops.pallas_kernels import ext_obs_diagonals_int8 as jkernel
 from quantumsimulations_tpu_torch.dynamics import expm_propagator as tep
-from quantumsimulations_tpu_torch.kernels import launch_counts
+from quantumsimulations_tpu_torch.kernels import launches
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 from quantumsimulations_tpu_torch.ops import ext_obs as tobs
 
 JJ, II, _ = jep._EXT_PAIRS
@@ -51,9 +52,11 @@ def test_plain_equals_pallas_interpret(shape, t_tile):
 def test_wrapper_on_cpu_takes_the_plain_version():
     rng = np.random.default_rng(3)
     S_re, S_im = (torch.from_numpy(_limbs(rng, (8, 40))) for _ in range(2))
-    before = dict(launch_counts)
-    got = tobs.ext_obs_diagonals_int8(S_re, S_im, JJ, II, n_diag=11, t_tile=128, interpret=True)
-    assert launch_counts == before  # no kernel launch on the CPU
+    timer = StageTimer()
+    with tracing(timer):
+        got = tobs.ext_obs_diagonals_int8(S_re, S_im, JJ, II, n_diag=11, t_tile=128,
+                                          interpret=True)
+    assert not launches(timer)  # no kernel launch on the CPU
     torch.testing.assert_close(got, tobs.ext_obs_diagonals_plain(S_re, S_im, JJ, II, 11),
                                rtol=0, atol=0)
     assert got.shape == (11, 16, 40)  # R = 3*3 + 1 rounded up to 8

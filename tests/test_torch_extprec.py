@@ -344,23 +344,25 @@ def test_axpy_plain_equals_the_band_composition(case):
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On CPU tensors the epilogue never reaches the kernel's launchers, and
     launches nothing."""
-    from quantumsimulations_tpu_torch.kernels import launch_counts
+    from quantumsimulations_tpu_torch.kernels import launches
+    from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 
     def refuse(*args, **kwargs):
         raise AssertionError("kernel launcher called for CPU tensors")
 
     monkeypatch.setattr(ext_carry, "_launch_panel", refuse)
     monkeypatch.setattr(ext_carry, "_launch_axpy", refuse)
-    before = dict(launch_counts)
+    timer = StageTimer()
     rng = np.random.default_rng(3)
     are, aim, bre, bim = (_limbs(rng, (12, 12)) for _ in range(4))
     want = jx.ext_cmatmul(_j(are), _j(aim), _j(bre), _j(bim), panel=12)
-    for g, w in zip(tx.ext_cmatmul(_t(are), _t(aim), _t(bre), _t(bim), panel=5), want):
-        _eq(g, w)
     cl = jx.taylor_coeff_limbs(10)[3]
-    _eq(tx.ext_axpy_traced(_t(are), _t(bre), cl),
-        jx.ext_add(_j(are), jx._ext_scalar_mul_traced(_j(bre), _j(cl))))
-    assert launch_counts == before
+    with tracing(timer):
+        for g, w in zip(tx.ext_cmatmul(_t(are), _t(aim), _t(bre), _t(bim), panel=5), want):
+            _eq(g, w)
+        _eq(tx.ext_axpy_traced(_t(are), _t(bre), cl),
+            jx.ext_add(_j(are), jx._ext_scalar_mul_traced(_j(bre), _j(cl))))
+    assert not launches(timer)
 
 
 def test_taylor_horner_and_identity_identical():

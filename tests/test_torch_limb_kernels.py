@@ -17,9 +17,11 @@ import torch
 from _torch_parity import no_jax_compile_cache  # noqa: F401
 from quantumsimulations_tpu.ops import limb_kernels as jlk
 from quantumsimulations_tpu.ops import split_apply_ext as jx
-from quantumsimulations_tpu_torch.kernels import launch_counts
+from quantumsimulations_tpu_torch.kernels import launches
+from quantumsimulations_tpu_torch.ops import extprec as tep
 from quantumsimulations_tpu_torch.ops import limb_kernels as tlk
 from quantumsimulations_tpu_torch.ops import split_apply_ext as tx
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 
 BITS, L = jx.GRID_BITS, jx.GRID_LIMBS
 
@@ -107,10 +109,40 @@ def test_value_grade_against_float64_product():
 def test_cpu_tensors_take_the_plain_version_without_counting():
     rng = np.random.default_rng(5)
     _, a = _canon(rng, (16, 16))
-    before = launch_counts["limb_matmul_canon"]
-    out = tlk.limb_matmul_canon(torch.as_tensor(a), torch.as_tensor(a), bits=BITS)
-    assert launch_counts["limb_matmul_canon"] == before
+    timer = StageTimer()
+    with tracing(timer):
+        out = tlk.limb_matmul_canon(torch.as_tensor(a), torch.as_tensor(a), bits=BITS)
+    assert not launches(timer)
     assert torch.equal(out, tlk.limb_matmul_canon_plain(torch.as_tensor(a), torch.as_tensor(a), BITS))
+
+
+@pytest.mark.parametrize(
+    "bits,n_limbs,M,K,N",
+    [
+        (5, 15, 40, 64, 24),  # the ext chain's grid: 5-bit limbs, L 15, S 17
+        (6, 10, 33, 48, 70),  # the cheb_step ext tier's grid: 6-bit limbs, L 10, S 12
+        (5, 15, 16, 37, 1),  # ragged: K not a multiple of 16, M below 17, N 1
+        (6, 10, 5, 21, 1),
+        (6, 10, 1, 130, 3),
+    ],
+)
+def test_diagonal_gemm_digits_equal_product_digits(bits, n_limbs, M, K, N):
+    """Every exact limb product's digits (``extprec.diagonal_mm``: one int8
+    GEMM over the diagonal's K range of the concatenated operands) equal the
+    plain float64 digits of the limb kernel, bit for bit, for every s; so do
+    the ``ext`` tier's whole digit stacks."""
+    gen = torch.Generator().manual_seed(bits * 1000 + M + K + N)
+    half = 2 ** (bits - 1)
+    a = torch.randint(-half, half + 1, (n_limbs, M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-half, half + 1, (n_limbs, K, N), generator=gen, dtype=torch.int8)
+    a[0, 0], b[0, :, 0] = -2 * half, 2 * half  # limb 0 after a carry fold
+    want = tlk.product_digits(a, b)
+    assert want.shape[0] == n_limbs + tlk.GRID_GUARD
+    left, right = tep._cat_k(a), tep._right_rev(b)
+    for s in range(n_limbs + tlk.GRID_GUARD):
+        got = tep.diagonal_mm(left, right, n_limbs, s)
+        assert got.dtype == torch.int32 and torch.equal(got, want[s]), s
+    assert torch.equal(tx._product_digits(a, b, n_limbs, K, bits), want)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "noncontiguous", "shape", "transpose_tile"])

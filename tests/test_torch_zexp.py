@@ -24,7 +24,8 @@ import torch
 
 from _torch_parity import no_jax_compile_cache  # noqa: F401
 from quantumsimulations_tpu.ops import pallas_kernels as jpk
-from quantumsimulations_tpu_torch.kernels import launch_counts
+from quantumsimulations_tpu_torch.kernels import launches
+from quantumsimulations_tpu_torch.utils.profiling import StageTimer, tracing
 from quantumsimulations_tpu_torch.ops import zexp
 
 
@@ -61,9 +62,11 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     psi = _states(32, 9, seed=1)
     args = (torch.as_tensor(psi.real), torch.as_tensor(psi.imag),
             torch.as_tensor(zexp.z_sign_table((2,) * 5)))
-    before = dict(launch_counts)
-    assert torch.equal(zexp.z_expectations_f32(*args), zexp.z_expectations_f32_plain(*args))
-    assert launch_counts == before  # no kernel launch on the host
+    timer = StageTimer()
+    with tracing(timer):
+        got = zexp.z_expectations_f32(*args)
+    assert torch.equal(got, zexp.z_expectations_f32_plain(*args))
+    assert not launches(timer)  # no kernel launch on the host
 
 
 def test_wrapper_rejects_malformed_input():
